@@ -1,0 +1,104 @@
+"""Plain PyTorch versions of the four CUDA kernels (the correctness contracts).
+
+The wrappers use them for CPU tensors; ``chip_smoke.py`` holds each kernel
+against them on the card.  The first three port ``repro/kernels/ref.py``;
+``join_expand_ref`` ports ``repro/relational/join.py::_join_expand``.
+"""
+from __future__ import annotations
+
+import torch
+
+MIX32 = -1640531527  # 0x9E3779B9 as a signed int32
+
+
+def hash32(keys: torch.Tensor, mask: int) -> torch.Tensor:
+    """The probe kernel's hash: ``h = key * 0x9E3779B9`` in wrapping int32
+    arithmetic, then ``h ^ (h >> 15)`` (arithmetic shift), masked.
+
+    Computed in int64: the exact product is cut to its low 32 bits and
+    re-read as signed, so it wraps as int32 does, on any device."""
+    h = keys.to(torch.int64) * MIX32
+    h = ((h & 0xFFFFFFFF) ^ 0x80000000) - 0x80000000
+    h = h ^ (h >> 15)
+    return (h & mask).to(torch.int32)
+
+
+def filter_mask_counts_ref(cols: torch.Tensor, lo: torch.Tensor,
+                           hi: torch.Tensor, tile: int = 2048):
+    """Conjunction of closed ranges per row → (mask, selected rows per tile)."""
+    cols32 = cols.to(torch.float32)
+    mask = ((cols32 >= lo.to(torch.float32))
+            & (cols32 <= hi.to(torch.float32))).all(dim=1)
+    n = mask.shape[0]
+    n_pad = ((n + tile - 1) // tile) * tile
+    padded = torch.zeros(n_pad, dtype=torch.bool, device=mask.device)
+    padded[:n] = mask
+    counts = padded.view(-1, tile).sum(dim=1).to(torch.int32)
+    return mask, counts
+
+
+def groupby_sum_ref(gids: torch.Tensor, values: torch.Tensor,
+                    n_groups: int) -> torch.Tensor:
+    """Segment-sum (N,V) by gid, dropping out-of-range gids → (G,V) f32."""
+    gids = gids.to(torch.int64)
+    ok = (gids >= 0) & (gids < n_groups)
+    safe = torch.where(ok, gids, n_groups)
+    vals = torch.where(ok[:, None], values.to(torch.float32), 0.0)
+    out = torch.zeros((n_groups + 1, values.shape[1]), dtype=torch.float32,
+                      device=values.device)
+    return out.index_add_(0, safe, vals)[:-1]
+
+
+def hash_probe_ref(probe_keys: torch.Tensor, slots_key: torch.Tensor,
+                   slots_row: torch.Tensor, max_probes: int = 32):
+    """Linear-probe lookup → (build row int32, -1 where absent; found)."""
+    cap = slots_key.shape[0]
+    mask = cap - 1
+    keys = probe_keys.to(torch.int32)
+    h0 = hash32(keys, mask).to(torch.int64)
+    row = torch.full(keys.shape, -1, dtype=torch.int32, device=keys.device)
+    done = torch.zeros(keys.shape, dtype=torch.bool, device=keys.device)
+    for i in range(max_probes):
+        cand = (h0 + i) & mask
+        k = slots_key[cand]
+        r = slots_row[cand]
+        hit = (~done) & (k == keys) & (r >= 0)
+        empty = (~done) & (r == -1)
+        row = torch.where(hit, r, row)
+        done = done | hit | empty
+    return row, row >= 0
+
+
+def _repeat_padded(x: torch.Tensor, repeats: torch.Tensor,
+                   total: int) -> torch.Tensor:
+    """``jnp.repeat(x, repeats, total_repeat_length=total)``: exact
+    repetition, cut at ``total`` or padded with the last value of ``x``."""
+    r = torch.repeat_interleave(x, repeats)
+    if r.shape[0] >= total:
+        return r[:total]
+    return torch.cat([r, x[-1:].expand(total - r.shape[0])])
+
+
+def join_expand_ref(order: torch.Tensor, lo: torch.Tensor,
+                    counts: torch.Tensor, counts_out: torch.Tensor,
+                    total: int):
+    """Expand match runs into gather indices.
+
+    Output ``j`` belongs to the probe row whose run of ``counts_out`` covers
+    it; ``total`` is the bucketed output length and the tail past the true
+    size is filler the caller slices off.  → (probe_idx, build_idx, matched),
+    each of length ``total``."""
+    n = lo.shape[0]
+    device = lo.device
+    probe_idx = _repeat_padded(torch.arange(n, device=device), counts_out,
+                               total)
+    starts = torch.cat([torch.zeros(1, dtype=counts_out.dtype, device=device),
+                        torch.cumsum(counts_out[:-1], 0)])
+    intra = torch.arange(total, device=device) - _repeat_padded(
+        starts, counts_out, total)
+    build_pos = lo[probe_idx] + intra
+    matched = counts[probe_idx] > 0
+    nb = order.shape[0]
+    build_pos = torch.where(matched, torch.clamp(build_pos, 0, max(nb - 1, 0)),
+                            0)
+    return probe_idx, order[build_pos], matched

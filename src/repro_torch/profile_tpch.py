@@ -1,0 +1,107 @@
+#!/usr/bin/env python3
+"""Where a warm TPC-H query's time goes on the GPU, for the PyTorch/CUDA port.
+
+Loads TPC-H (default SF1) into ``repro_torch``'s ``SiriusEngine`` with the
+kernel backend on the card, warms each of Q1, Q6, Q3, Q5 once, then runs
+each once under ``torch.profiler`` (CPU and CUDA activity) and prints, per
+query, one JSON line with:
+
+* ``wall_ms`` — host wall clock of the profiled run (profiling adds host
+  overhead, so this is above the unprofiled warm time of ``chip_smoke.py``);
+* ``device_busy_ms`` — the union of the intervals in which a device
+  activity (kernel, copy, memset) ran, and ``idle_share`` = 1 - busy/wall;
+* ``device_events`` — the number of device activities (launches and copies);
+* ``syncs`` — host calls that wait for the device: scalar reads
+  (``aten::item``) and barriers (``cudaDeviceSynchronize``);
+* ``top_device`` — device time by kernel name, and ``top_host`` — host
+  self time by operator, the largest first.
+
+Run on a machine with a card, from the root of a checkout:
+``PYTHONPATH=src python3 -m repro_torch.profile_tpch [--sf 1.0] [--out FILE]``.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+import time
+from collections import defaultdict
+from pathlib import Path
+
+ORDER = (1, 6, 3, 5)
+WAITS = ("aten::item", "cudaDeviceSynchronize")
+
+
+def _busy_ms(intervals) -> float:
+    total, end = 0.0, float("-inf")
+    for a, b in sorted(intervals):
+        if b <= end:
+            continue
+        total += b - max(a, end)
+        end = b
+    return total / 1e3
+
+
+def profile_query(eng, plan, top: int) -> dict:
+    import torch
+    from torch._C._profiler import _ExperimentalConfig
+    from torch.profiler import ProfilerActivity, profile
+    # the executor runs pipelines on worker threads: record them all
+    config = _ExperimentalConfig(profile_all_threads=True)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 experimental_config=config) as prof:
+        t0 = time.perf_counter()
+        eng.execute(plan)
+        wall = (time.perf_counter() - t0) * 1e3
+    device, host = defaultdict(float), defaultdict(float)
+    intervals, syncs = [], 0
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            intervals.append((e.time_range.start, e.time_range.end))
+            device[e.name] += e.time_range.elapsed_us() / 1e3
+        else:
+            host[e.name] += e.self_cpu_time_total / 1e3
+            syncs += e.name in WAITS
+    busy = _busy_ms(intervals)
+
+    def head(d):
+        return [[k[:90], round(v, 4)] for k, v in
+                sorted(d.items(), key=lambda kv: -kv[1])[:top]]
+    return {"wall_ms": wall, "device_busy_ms": busy,
+            "idle_share": 1.0 - busy / wall if wall else None,
+            "device_events": len(intervals), "syncs": syncs,
+            "top_device": head(device), "top_host": head(host)}
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--sf", type=float, default=1.0)
+    ap.add_argument("--top", type=int, default=8)
+    ap.add_argument("--out", default=None, help="also write the lines here")
+    args = ap.parse_args()
+    import torch
+    if not torch.cuda.is_available():
+        print("profile_tpch: no CUDA device", file=sys.stderr)
+        return 2
+    from .core.executor import SiriusEngine
+    from .data.tpch import generate, load_into_engine
+    from .data.tpch_queries import QUERIES
+
+    eng = SiriusEngine(use_kernels=True)
+    load_into_engine(eng, generate(args.sf))
+    lines = []
+    for qid in ORDER:
+        eng.execute(QUERIES[qid]())                  # warm
+        row = {"query": f"Q{qid}", "sf": args.sf,
+               "card": torch.cuda.get_device_name(0),
+               **profile_query(eng, QUERIES[qid](), args.top)}
+        print(json.dumps(row), flush=True)
+        lines.append(row)
+    if args.out:
+        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+        Path(args.out).write_text("\n".join(json.dumps(r) for r in lines) + "\n")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

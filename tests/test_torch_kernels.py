@@ -1,0 +1,312 @@
+"""The port's kernel layer against the JAX package, on the CPU.
+
+Each plain PyTorch version in ``repro_torch.kernels.ref`` (what the kernel
+wrappers run for CPU tensors) is held against the Pallas kernel in
+interpret mode and against ``repro/kernels/ref.py``; the plain-torch glue
+(``build_table32``, ``sorted_build``, ``compact``, ...) against its jnp
+counterpart, bit for bit.  Inputs are numpy arrays made from a seed and
+handed to both packages.  The CUDA kernels themselves are checked on the
+card by ``tests/test_torch_gpu.py`` and ``chip_smoke.py``.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro.kernels.filter_count import filter_mask_counts as pallas_filter
+from repro.kernels.groupby_agg import groupby_sum as pallas_groupby
+from repro.kernels.hash_probe import _hash as jax_hash32
+from repro.kernels.hash_probe import hash_probe as pallas_probe
+from repro.kernels.join_expand import join_expand as pallas_expand
+from repro.relational import join as jjoin
+from repro_torch.kernels import build, ops, ref
+from repro_torch.relational.join import join_match
+
+# the suite runs files in parallel worker processes: keep torch to one
+# thread so the workers do not oversubscribe the cores
+torch.set_num_threads(1)
+
+
+def T(a):
+    return torch.from_numpy(np.asarray(a))
+
+
+def N(x):
+    return np.asarray(x.numpy() if isinstance(x, torch.Tensor) else x)
+
+
+# ---------------------------------------------------------------------------
+# filter_mask_counts
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("n", [1, 2047, 2048, 5000])
+@pytest.mark.parametrize("c", [1, 3])
+def test_filter_mask_counts_matches_pallas_and_ref(n, c):
+    rng = np.random.default_rng(n * 7 + c)
+    cols = rng.uniform(-1, 1, size=(n, c)).astype(np.float32)
+    lo = rng.uniform(-1, 0, c).astype(np.float32)
+    hi = rng.uniform(0, 1, c).astype(np.float32)
+    mask, counts = ops.filter_mask_counts(T(cols), T(lo), T(hi))
+    p_mask, p_counts = pallas_filter(jnp.asarray(cols), jnp.asarray(lo),
+                                     jnp.asarray(hi), interpret=True)
+    r_mask, r_counts = jref.filter_mask_counts_ref(
+        jnp.asarray(cols), jnp.asarray(lo), jnp.asarray(hi))
+    np.testing.assert_array_equal(N(mask), np.asarray(p_mask))
+    np.testing.assert_array_equal(N(mask), np.asarray(r_mask))
+    np.testing.assert_array_equal(N(counts), np.asarray(r_counts))
+    np.testing.assert_array_equal(N(counts), np.asarray(p_counts))
+
+
+def test_filter_counts_with_open_upper_bound_follow_ref_not_pallas():
+    """With hi=+inf the Pallas kernel's +inf padding rows pass, so its last
+    tile count includes them; the port (like ref.py) counts real rows only."""
+    cols = np.arange(3, dtype=np.float32)[:, None]
+    lo, hi = np.float32([0.0]), np.float32([np.inf])
+    _, counts = ops.filter_mask_counts(T(cols), T(lo), T(hi))
+    _, r_counts = jref.filter_mask_counts_ref(jnp.asarray(cols),
+                                              jnp.asarray(lo), jnp.asarray(hi))
+    _, p_counts = pallas_filter(jnp.asarray(cols), jnp.asarray(lo),
+                                jnp.asarray(hi), interpret=True)
+    assert N(counts).tolist() == np.asarray(r_counts).tolist() == [3]
+    assert np.asarray(p_counts).tolist() == [2048]
+
+
+def test_filter_select_compacts_in_row_order():
+    rng = np.random.default_rng(3)
+    cols = rng.uniform(0, 10, size=(3000, 2)).astype(np.float32)
+    lo, hi = np.float32([2.0, 1.0]), np.float32([7.0, 9.0])
+    idx, count = ops.filter_select(T(cols), T(lo), T(hi))
+    j_idx, j_count = jops.filter_select(jnp.asarray(cols), jnp.asarray(lo),
+                                        jnp.asarray(hi))
+    assert int(count) == int(j_count)
+    np.testing.assert_array_equal(N(idx), np.asarray(j_idx))
+
+
+# ---------------------------------------------------------------------------
+# groupby_sum
+# ---------------------------------------------------------------------------
+
+
+def _sum_abs(gids, vals, g):
+    out = np.zeros((g, vals.shape[1]))
+    ok = (gids >= 0) & (gids < g)
+    np.add.at(out, gids[ok], np.abs(vals[ok].astype(np.float64)))
+    return out
+
+
+@pytest.mark.parametrize("n", [1, 17, 1024, 5000])
+@pytest.mark.parametrize("n_groups", [1, 7, 200])
+@pytest.mark.parametrize("v_cols", [1, 3])
+def test_groupby_sum_matches_pallas_and_ref(n, n_groups, v_cols):
+    """Float32 sums taken in another order differ in their last bits, so
+    the tolerance is 1e-6 x sum|v| per (group, column)."""
+    rng = np.random.default_rng(n * 31 + n_groups)
+    gids = rng.integers(0, n_groups, n).astype(np.int32)
+    vals = rng.normal(size=(n, v_cols)).astype(np.float32)
+    got = N(ops.groupby_sum(T(gids), T(vals), n_groups)).astype(np.float64)
+    pallas = np.asarray(pallas_groupby(jnp.asarray(gids), jnp.asarray(vals),
+                                       n_groups, interpret=True))
+    oracle = np.asarray(jref.groupby_sum_ref(jnp.asarray(gids),
+                                             jnp.asarray(vals), n_groups))
+    tol = 1e-6 * _sum_abs(gids, vals, n_groups) + 1e-30
+    assert got.shape == pallas.shape == (n_groups, v_cols)
+    assert (np.abs(got - pallas) <= tol).all()
+    assert (np.abs(got - oracle) <= tol).all()
+
+
+def test_groupby_sum_drops_out_of_range_gids():
+    gids = np.int32([0, 1, 99999, -1, 1])
+    vals = np.ones((5, 1), np.float32)
+    got = N(ops.groupby_sum(T(gids), T(vals), 2)).ravel()
+    pallas = np.asarray(pallas_groupby(jnp.asarray(gids), jnp.asarray(vals), 2,
+                                       interpret=True)).ravel()
+    assert got.tolist() == pallas.tolist() == [1.0, 2.0]
+
+
+def test_groupby_sum_large_partitions_like_the_reference():
+    rng = np.random.default_rng(11)
+    n_groups = 9000            # beyond one call's 4096 groups: three calls
+    gids = rng.integers(0, n_groups, 6000).astype(np.int32)
+    vals = rng.normal(size=(6000, 2)).astype(np.float32)
+    got = N(ops.groupby_sum_large(T(gids), T(vals), n_groups))
+    want = np.asarray(jops.groupby_sum_large(jnp.asarray(gids),
+                                             jnp.asarray(vals), n_groups))
+    tol = 1e-6 * _sum_abs(gids, vals, n_groups) + 1e-30
+    assert got.shape == want.shape
+    assert (np.abs(got.astype(np.float64) - want) <= tol).all()
+
+
+# ---------------------------------------------------------------------------
+# hash_probe and its table build
+# ---------------------------------------------------------------------------
+
+
+def test_hash32_wraps_like_int32():
+    rng = np.random.default_rng(5)
+    keys = np.concatenate([
+        rng.integers(-2**31, 2**31, 5000),
+        [0, 1, -1, -2, 2**31 - 1, -2**31]]).astype(np.int32)
+    for mask in (15, 2**16 - 1, 2**19 - 1):
+        np.testing.assert_array_equal(
+            N(ref.hash32(T(keys), mask)),
+            np.asarray(jax_hash32(jnp.asarray(keys), mask)))
+
+
+def _tables(build_keys):
+    """Port and reference sorted_build + build_table32 on the same keys."""
+    n = len(build_keys)
+    nb = ops.bucket_size(n)
+    valid = np.arange(nb) < n
+    t_out = ops.sorted_build(ops.pad_rows(T(build_keys), nb), T(valid))
+    j_out = jops.sorted_build(jops.pad_rows(jnp.asarray(build_keys), nb),
+                              jnp.asarray(valid))
+    b32 = torch.where(T(valid), t_out[2], -1).to(torch.int32)
+    jb32 = jnp.where(jnp.asarray(valid), j_out[2], -1).astype(jnp.int32)
+    t_tab = ops.build_table32(b32, T(valid))
+    j_tab = jops.build_table32(jb32, jnp.asarray(valid))
+    return t_out, j_out, t_tab, j_tab
+
+
+@pytest.mark.parametrize("n_build", [1, 5, 300, 2000])
+def test_sorted_build_and_build_table32_bit_exact(n_build):
+    rng = np.random.default_rng(n_build)
+    keys = rng.choice(10 * n_build + 10, n_build, replace=False).astype(np.int64) - 7
+    t_out, j_out, t_tab, j_tab = _tables(keys)
+    for a, b in zip(t_out, j_out):
+        np.testing.assert_array_equal(N(a), np.asarray(b))
+    for a, b in zip(t_tab, j_tab):
+        np.testing.assert_array_equal(N(a), np.asarray(b))
+    assert bool(t_tab[2])
+
+
+def test_sorted_build_flags_duplicates_like_the_reference():
+    keys = np.int64([4, 9, 4, 1])
+    t_out, j_out, _, _ = _tables(keys)
+    assert bool(t_out[3]) and bool(j_out[3])
+
+
+@pytest.mark.parametrize("n,placed", [(150_000, True), (227_000, False)])
+def test_build_table32_declines_at_q5_sf1_build_size(n, placed):
+    """At ~227,000 build rows (Q5's 1994 orders at SF1) some keys need more
+    than 32 rounds, in both packages, so try_probe declines there; the
+    slot arrays agree bit for bit either way."""
+    nb = ops.bucket_size(n)
+    valid = np.arange(nb) < n
+    keys = np.where(valid, np.random.default_rng(n).permutation(nb), -1)
+    t_tab = ops.build_table32(T(keys.astype(np.int32)), T(valid))
+    j_tab = jops.build_table32(jnp.asarray(keys, jnp.int32), jnp.asarray(valid))
+    assert bool(t_tab[2]) is placed and bool(j_tab[2]) is placed
+    for a, b in zip(t_tab[:2], j_tab[:2]):
+        np.testing.assert_array_equal(N(a), np.asarray(b))
+
+
+@pytest.mark.parametrize("n_build,n_probe", [(1, 10), (100, 1000), (2000, 5000)])
+def test_hash_probe_matches_pallas_and_ref(n_build, n_probe):
+    rng = np.random.default_rng(n_build + n_probe)
+    keys = rng.choice(5 * n_build + 5, n_build, replace=False).astype(np.int64)
+    probe = rng.integers(-3, 5 * n_build + 8, n_probe).astype(np.int64)
+    t_out, j_out, t_tab, j_tab = _tables(keys)
+    p32 = ops.map_probe_keys(t_out[0], T(probe))
+    jp32 = jops.map_probe_keys(j_out[0], jnp.asarray(probe))
+    np.testing.assert_array_equal(N(p32), np.asarray(jp32))
+    row, found = ops.hash_probe(p32, t_tab[0], t_tab[1])
+    p_row, p_found = pallas_probe(jp32, j_tab[0], j_tab[1], interpret=True)
+    r_row, r_found = jref.hash_probe_ref(jp32, j_tab[0], j_tab[1])
+    for got, want in ((row, p_row), (found, p_found), (row, r_row),
+                      (found, r_found)):
+        np.testing.assert_array_equal(N(got), np.asarray(want))
+    # and the probe finds exactly the keys that are in the build
+    np.testing.assert_array_equal(N(found), np.isin(probe, keys))
+
+
+# ---------------------------------------------------------------------------
+# join match + join_expand
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("n_probe,n_build,key_range", [
+    (50, 40, 10), (1000, 300, 100), (3000, 3000, 5000), (7, 200, 3)])
+@pytest.mark.parametrize("how", ["inner", "left"])
+def test_join_expand_matches_pallas_and_jnp(n_probe, n_build, key_range, how):
+    rng = np.random.default_rng(n_probe * 13 + n_build)
+    pk = rng.integers(0, key_range, n_probe).astype(np.int64)
+    bk = rng.integers(0, key_range, n_build).astype(np.int64)
+    order, lo, counts = join_match(T(pk), T(bk))
+    j_order, j_lo, j_counts = jjoin._join_match(jnp.asarray(pk), jnp.asarray(bk))
+    for a, b in ((order, j_order), (lo, j_lo), (counts, j_counts)):
+        np.testing.assert_array_equal(N(a), np.asarray(b))
+    counts_out = torch.clamp(counts, min=1) if how == "left" else counts
+    j_counts_out = jnp.asarray(N(counts_out))
+    total = int(counts_out.sum())
+    t_pad = ops.bucket_size(total)
+    got = ops.join_expand(order, lo, counts, counts_out, t_pad)
+    jnp_out = jjoin._join_expand(j_order, j_lo, j_counts, j_counts_out, t_pad)
+    pallas = pallas_expand(j_order, j_lo, j_counts, j_counts_out, t_pad,
+                           interpret=True)
+    for a, b, c in zip(got, jnp_out, pallas):
+        # the plain version repeats the jnp padding, tail included
+        np.testing.assert_array_equal(N(a), np.asarray(b))
+        np.testing.assert_array_equal(N(a)[:total], np.asarray(c)[:total])
+
+
+def test_join_expand_no_matches():
+    order, lo, counts = join_match(T(np.int64([1, 2, 3])), T(np.int64([7, 8])))
+    got = ops.join_expand(order, lo, counts, counts, 8)
+    want = jjoin._join_expand(*(jnp.asarray(N(x)) for x in (order, lo, counts,
+                                                           counts)), 8)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(N(a), np.asarray(b))
+
+
+# ---------------------------------------------------------------------------
+# glue and wrapper contracts
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("n", [0, 1, 100, 4097])
+def test_compact_matches_reference(n):
+    rng = np.random.default_rng(n)
+    mask = rng.random(n) < 0.3
+    idx, count = ops.compact(T(mask))
+    j_idx, j_count = jops.compact(jnp.asarray(mask))
+    assert int(count) == int(j_count)
+    np.testing.assert_array_equal(N(idx), np.asarray(j_idx))
+
+
+def test_bucket_and_pad_match_reference():
+    for n in (0, 1, 8, 9, 1000, 4097):
+        assert ops.bucket_size(n) == jops.bucket_size(n)
+    a = np.arange(10, dtype=np.int64).reshape(5, 2)
+    np.testing.assert_array_equal(N(ops.pad_rows(T(a), 8)),
+                                  np.asarray(jops.pad_rows(jnp.asarray(a), 8)))
+
+
+def test_wrappers_refuse_other_devices():
+    """Only CPU tensors take the plain version; any other device raises
+    (a CUDA tensor would launch the kernel)."""
+    x = torch.empty((4, 1), device="meta")
+    lo = torch.empty(1, device="meta")
+    with pytest.raises(ValueError):
+        ops.filter_mask_counts(x, lo, lo)
+    with pytest.raises(ValueError):
+        ops.hash_probe(torch.zeros(3, dtype=torch.int32),
+                       torch.empty(8, dtype=torch.int32, device="meta"),
+                       torch.empty(8, dtype=torch.int32, device="meta"))
+
+
+def test_plain_versions_count_no_launches():
+    build.reset_launch_counts()
+    rng = np.random.default_rng(0)
+    ops.groupby_sum(T(rng.integers(0, 3, 50).astype(np.int32)),
+                    T(rng.normal(size=(50, 2)).astype(np.float32)), 3)
+    assert build.launch_counts() == {k: 0 for k in build.KERNELS}
+
+
+def test_x64_reference_is_active():
+    # the reference's dtype contract (int64 keys, f64 money) needs x64 on
+    import repro.relational.table  # noqa: F401 — turns x64 on at import
+    assert jax.config.jax_enable_x64

@@ -1,0 +1,154 @@
+"""TPC-H Q1, Q3, Q5 and Q6 on the port, against the JAX package, on the CPU.
+
+The port's engine runs with ``device="cpu"`` (each kernel wrapper then runs
+its plain version), with and without the kernel backend.  Its results are
+held against the reference engine (``use_kernels=True``,
+``compile_pipelines=False``, the eager path the port mirrors) and against
+the numpy oracle ``FallbackEngine`` with the suite's tolerance (rtol 1e-6,
+other columns row-exact); its kernel hit counts against the reference's.
+"""
+import jax  # noqa: F401 — both packages in one process, JAX on the CPU
+import numpy as np
+import pytest
+import torch
+
+from repro.core.executor import SiriusEngine as RefEngine
+from repro.core.fallback import FallbackEngine
+from repro.core.plan import explain as ref_explain
+from repro.data.tpch import generate as ref_generate
+from repro.data.tpch import load_into_engine as ref_load
+from repro.data.tpch_queries import QUERIES as REF_QUERIES
+from repro_torch.core import executor as texec
+from repro_torch.core import instrument
+from repro_torch.core.executor import SiriusEngine
+from repro_torch.core.plan import explain
+from repro_torch.data.tpch import generate, load_into_engine
+from repro_torch.data.tpch_queries import QUERIES
+
+from conftest import assert_tables_equal
+
+# the suite runs files in parallel worker processes: keep torch to one
+# thread so the workers do not oversubscribe the cores
+torch.set_num_threads(1)
+
+QIDS = sorted(QUERIES)
+# kernel hits per query at SF0.01 on the reference engine
+EXPECTED_HITS = {
+    1: dict(filter=1, probe=0, agg=1, expand=0, topk=0),
+    3: dict(filter=2, probe=2, agg=1, expand=0, topk=0),
+    5: dict(filter=1, probe=4, agg=1, expand=1, topk=0),
+    6: dict(filter=1, probe=0, agg=1, expand=0, topk=0),
+}
+
+
+@pytest.fixture(scope="module")
+def db():
+    return ref_generate(scale_factor=0.01, seed=19920101)
+
+
+@pytest.fixture(scope="module")
+def reference(db):
+    """Per query: the reference engine's result and its kernel hits."""
+    eng = RefEngine(use_kernels=True, compile_pipelines=False)
+    ref_load(eng, db)
+    out = {}
+    for qid in QIDS:
+        before = eng.backend.hit_counts()
+        res = eng.execute(REF_QUERIES[qid]()).to_host()
+        after = eng.backend.hit_counts()
+        out[qid] = (res, {k: after[k] - before[k] for k in after})
+    return out
+
+
+@pytest.fixture(scope="module")
+def oracle(db):
+    return {qid: FallbackEngine(db).execute(REF_QUERIES[qid]()) for qid in QIDS}
+
+
+def _engine(db, **kw):
+    eng = SiriusEngine(device="cpu", **kw)
+    load_into_engine(eng, db)
+    return eng
+
+
+@pytest.fixture(scope="module")
+def engines(db):
+    return {uk: _engine(db, use_kernels=uk) for uk in (False, True)}
+
+
+def test_generate_gives_identical_arrays(db):
+    mine = generate(0.01, seed=19920101)
+    assert list(mine) == list(db)
+    for table in db:
+        assert list(mine[table]) == list(db[table])
+        for col, want in db[table].items():
+            got = mine[table][col]
+            assert got.dtype == want.dtype, (table, col)
+            np.testing.assert_array_equal(got, want, err_msg=f"{table}.{col}")
+
+
+@pytest.mark.parametrize("use_kernels", [False, True])
+@pytest.mark.parametrize("qid", QIDS)
+def test_query_matches_reference_and_oracle(qid, use_kernels, engines,
+                                            reference, oracle):
+    got = engines[use_kernels].execute(QUERIES[qid]()).to_host()
+    assert_tables_equal(got, reference[qid][0])
+    assert_tables_equal(got, oracle[qid])
+
+
+@pytest.mark.parametrize("qid", QIDS)
+def test_kernel_hits_match_reference(qid, db, reference):
+    eng = _engine(db, use_kernels=True)
+    eng.execute(QUERIES[qid]())
+    assert eng.backend.hit_counts() == reference[qid][1] == EXPECTED_HITS[qid]
+
+
+@pytest.mark.parametrize("use_kernels", [False, True])
+@pytest.mark.parametrize("qid", [1, 6])
+def test_small_morsels_do_not_change_results(qid, use_kernels, db, oracle):
+    eng = _engine(db, use_kernels=use_kernels, morsel_rows=1000)
+    assert_tables_equal(eng.execute(QUERIES[qid]()).to_host(), oracle[qid])
+
+
+@pytest.mark.parametrize("qid", [1, 3])
+def test_profile_mode_times_operators_and_matches(qid, db, oracle):
+    eng = _engine(db, use_kernels=True, profile=True)
+    assert_tables_equal(eng.execute(QUERIES[qid]()).to_host(), oracle[qid])
+    times = eng.executor.op_times
+    assert times["filter"] > 0 and times["groupby"] > 0
+    if qid == 3:
+        assert times["join"] > 0
+
+
+@pytest.mark.parametrize("qid", QIDS)
+def test_default_path_waits_once_per_query(qid, engines):
+    before = instrument.sync_barriers.value
+    engines[True].execute(QUERIES[qid]())
+    assert instrument.sync_barriers.value - before == 1
+
+
+@pytest.mark.parametrize("qid", QIDS)
+def test_explain_matches_reference(qid):
+    assert explain(QUERIES[qid]()) == ref_explain(REF_QUERIES[qid]())
+
+
+def test_engine_without_a_card_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        SiriusEngine()
+    with pytest.raises(RuntimeError):
+        texec.default_device()
+
+
+def test_topk_route_raises_where_the_reference_launches_its_kernel(engines):
+    from repro_torch.relational.sort import SortKey
+    from repro_torch.relational.table import Table
+    backend = engines[True].backend
+    t = Table.from_pydict({"a": np.arange(500, dtype=np.int64),
+                           "f": np.linspace(0, 1, 500)})
+    with pytest.raises(NotImplementedError, match="topk_select"):
+        backend.try_topk(t, [SortKey("a", False)], 10)
+    # outside the kernel's contract it declines, as the reference does
+    assert backend.try_topk(t, [SortKey("f")], 10) is None
+    assert backend.try_topk(t, [SortKey("a")], None) is None
+    assert backend.try_topk(t, [SortKey("a")], 500) is None

@@ -5,25 +5,35 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It imports
 nothing of JAX or of the JAX package ``repro``, and:
 
 1. prints the card's name and power limit (``nvidia-smi``);
-2. builds the four CUDA kernels from ``src/repro_torch/csrc``;
-3. calls each kernel's wrapper on the card at the shapes TPC-H at SF1
-   gives it, from inputs made with a numpy seed, and holds the result
-   against the kernel's plain PyTorch version on the same inputs: the
-   filter mask and tile counts, the probe rows and the expansion indices
-   exactly; the group-by counts exactly and its other sums against the
-   plain version computed in float64, to within 2e-7 x sum|v| per (group,
-   column), because float32 sums taken in another order differ in their
-   last bits and a relative tolerance fails on centred sums near zero.
-   ``join_expand`` is held at both of Q5's calls.  Each kernel, its plain
-   version and (for the group-by) one library call are timed with CUDA
-   events;
-4. drives the main path: TPC-H SF1 data, ``SiriusEngine(use_kernels=True)``
-   on the card, Q1, Q6, Q3 and Q5 from fresh plans (a cold run and the
-   median of three warm runs each).  It checks the per-query kernel hits,
-   that every kernel's launch count over this phase is > 0, and the results
-   against a ``use_kernels=False`` engine on the same card (row-exact for
-   integer, date and string columns, rtol 1e-6 for floats);
-5. prints the kernels' JSON line, then as its last line
+2. builds the five CUDA kernels from ``src/repro_torch/csrc``;
+3. calls each kernel's wrapper on the card at the shapes its main path
+   gives it (TPC-H at SF1, ClickBench at 2,000,000 rows), from inputs made
+   with a numpy seed, and holds the result against the kernel's plain
+   PyTorch version on the same inputs: the filter mask and tile counts, the
+   probe rows, the expansion indices and the top-k indices exactly; the
+   group-by counts exactly and its other sums to within 2e-7 x sum|v| per
+   (group, column): both sum in float64 in different orders and round to
+   float32, and a relative tolerance fails on centred sums near zero.
+   ``groupby_sum`` is held at Q1's call and at ClickBench q2's one-group
+   call, ``join_expand`` at both of Q5's calls and ``topk_select`` at a
+   main-path shape and at a 2^20-key shape with heavy ties.  Each kernel,
+   its plain version and (for the group-by and the top-k) one library call
+   are timed with CUDA events;
+4. drives the TPC-H path: SF1 data, ``SiriusEngine(use_kernels=True)`` on
+   the card, Q1, Q6, Q3 and Q5 from fresh plans (a cold run and the median
+   of three warm runs each).  It holds the per-query kernel hits equal to
+   the reference engine's at SF1, checks that every kernel of the path
+   launched over this phase, and the results against a
+   ``use_kernels=False`` engine on the same card (row-exact for integer,
+   date and string columns, rtol 1e-6 for floats);
+5. drives the ClickBench path: 2,000,000 rows (seed 20130701) and all 15
+   queries through ``SiriusEngine.sql`` (SQL frontend and optimizer), a
+   cold run and the median of three warm runs each, on both engines.  It
+   holds the per-query kernel hits equal to the reference engine's at this
+   scale, checks that ``groupby_sum`` and ``topk_select`` launched in this
+   phase, compares the results as in phase 4, and counts device→host copies
+   inside pipelines on a warm run of each string query (must be 0);
+6. prints the kernels' JSON line, then as its last line
    ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero before that last line.  Without a CUDA device,
@@ -52,14 +62,28 @@ SF = 1.0
 HBM_BYTES_PER_S = 3.35e12
 SCALAR_OPS_PER_S = 67e12
 
-# kernel hits per query on the reference engine (TPC-H, any scale)
+
+def _hits(filter=0, probe=0, agg=0, expand=0, topk=0) -> dict:
+    return dict(filter=filter, probe=probe, agg=agg, expand=expand, topk=topk)
+
+
+# kernel hits per query on the reference engine at SF1 (Q5 differs at
+# SF0.01, where it has probe 4 and expand 1)
 EXPECTED_HITS = {
-    1: {"filter": 1, "agg": 1},
-    6: {"filter": 1, "agg": 1},
-    3: {"filter": 2, "probe": 2, "agg": 1},
-    5: {"filter": 1, "probe": 4, "agg": 1, "expand": 1},
+    1: _hits(filter=1, agg=1),
+    6: _hits(filter=1, agg=1),
+    3: _hits(filter=2, probe=2, agg=1),
+    5: _hits(filter=1, probe=3, agg=1, expand=2),
 }
 ORDER = (1, 6, 3, 5)
+
+# ClickBench: rows of the hits sample and its seed; the kernel hits per
+# query on the reference engine at that scale (top-k declines on q12 and
+# q14 there: their composite ORDER BY key spans more than 2^24)
+CB_ROWS = 2_000_000
+CB_SEED = 20130701
+CB_AGG = ("q0", "q1", "q2", "q6", "q12", "q14", "q20", "q21", "q43x", "q44x")
+CB_TOPK = ("q8", "q21", "q22", "q44x")
 
 # The TPU kernels the CUDA kernels replace (file:line of the pallas_call's
 # function in the JAX package)
@@ -68,12 +92,19 @@ REPLACES = {
     "groupby_sum": "src/repro/kernels/groupby_agg.py:48",
     "hash_probe": "src/repro/kernels/hash_probe.py:101",
     "join_expand": "src/repro/kernels/join_expand.py:62",
+    "topk_select": "src/repro/kernels/topk.py:60",
 }
 SOURCES = {
     "filter_mask_counts": "src/repro_torch/csrc/filter_count.cu",
     "groupby_sum": "src/repro_torch/csrc/groupby_agg.cu",
     "hash_probe": "src/repro_torch/csrc/hash_probe.cu",
     "join_expand": "src/repro_torch/csrc/join_expand.cu",
+    "topk_select": "src/repro_torch/csrc/topk.cu",
+}
+# the kernels each main path must launch
+PATH_KERNELS = {
+    "tpch": ("filter_mask_counts", "groupby_sum", "hash_probe", "join_expand"),
+    "clickbench": ("groupby_sum", "topk_select"),
 }
 
 
@@ -149,9 +180,58 @@ def check_filter(rng, dev) -> dict:
     }
 
 
-def check_groupby(rng, dev) -> dict:
+def _groupby_case(gids: np.ndarray, vals: np.ndarray, g: int, what: str,
+                  dev) -> dict:
     import torch
     from repro_torch.kernels import ops, ref
+    n, v = vals.shape
+    gi = torch.from_numpy(gids).to(dev)
+    va = torch.from_numpy(vals).to(dev)
+    got = ops.groupby_sum(gi, va, g)
+    torch.cuda.synchronize()
+    # the plain version sums in float64 and rounds once, as the kernel does
+    want = ref.groupby_sum_ref(gi, va, g)
+    gl = gi.long()
+    scale = torch.zeros((g, v), dtype=torch.float64, device=dev).index_add_(
+        0, gl, va.double().abs())
+    err = (got.double() - want.double()).abs()
+    # the counts (column 0) are exact in float32 below 2^24 rows a group;
+    # on the other columns the two float64 sums, taken in other orders,
+    # round to float32 within an ulp of each other (1.2e-7 x |sum|), while
+    # one dropped row of a 2 M-row group is about 5e-7 x sum|v|
+    if not torch.equal(got[:, 0], want[:, 0]):
+        raise AssertionError(f"groupby_sum ({what}): the count column is not "
+                             f"exact")
+    rel = (err[:, 1:] / scale[:, 1:].clamp(min=1e-300)).max()
+    if not bool((err[:, 1:] <= 2e-7 * scale[:, 1:]).all()):
+        raise AssertionError(f"groupby_sum ({what}): error {float(rel):.3g} "
+                             f"x sum|v| exceeds 2e-7")
+    return {
+        "name": "groupby_sum", "shape": f"N={n}, V={v}, G={g} ({what})",
+        "max_abs_err": float(err.max()),
+        "max_err_over_sum_abs": float(rel),
+        "tolerance": "column 0 (counts) exact; the others 2e-7 x sum|v| per "
+                     "(group, column)",
+        "ms": cuda_ms(lambda: ops.groupby_sum(gi, va, g)),
+        "plain_ms": cuda_ms(lambda: ref.groupby_sum_ref(gi, va, g)),
+        "library_ms": cuda_ms(lambda: torch.zeros(
+            (g, v), dtype=torch.float32, device=dev).index_add_(0, gl, va)),
+        **bound(n * 4 + n * v * 4 + g * v * 4, n * v),
+    }
+
+
+def _centred_split(vals: np.ndarray, col: int, x: np.ndarray) -> None:
+    """Columns ``col`` and ``col + 1`` of ``vals``: the f32 hi/lo split of
+    ``x`` minus its f64 mean, as core/kernel_backend.py builds them."""
+    centred = x - x.mean()
+    vals[:, col] = centred.astype(np.float32)
+    vals[:, col + 1] = (centred - vals[:, col]).astype(np.float32)
+
+
+def check_groupby(rng, dev) -> dict:
+    """The row is Q1's call at SF1 (4 live groups); ClickBench q2's call at
+    2,000,000 rows, where every row falls in one group, goes under
+    ``other_shapes`` (q0, q1, q20 and q43x call it with one group too)."""
     n, v, g = 5_996_021, 15, 128       # Q1: 4 groups, called with G=128
     gids = rng.integers(0, 4, n).astype(np.int32)
     # the columns core/kernel_backend.py builds for Q1: a ones column, then
@@ -159,41 +239,23 @@ def check_groupby(rng, dev) -> dict:
     vals = np.empty((n, v), np.float32)
     vals[:, 0] = 1.0
     for k in range(7):
-        x = rng.integers(1, 10_001, n) * (0.01 * 10 ** (k % 3))
-        centred = x - x.mean()
-        vals[:, 1 + 2 * k] = centred.astype(np.float32)
-        vals[:, 2 + 2 * k] = (centred - vals[:, 1 + 2 * k]).astype(np.float32)
-    gi = torch.from_numpy(gids).to(dev)
-    va = torch.from_numpy(vals).to(dev)
-    got = ops.groupby_sum(gi, va, g)
-    torch.cuda.synchronize()
-    gl = gi.long()
-    want = torch.zeros((g, v), dtype=torch.float64, device=dev).index_add_(
-        0, gl, va.double())
-    scale = torch.zeros((g, v), dtype=torch.float64, device=dev).index_add_(
-        0, gl, va.double().abs())
-    err = (got.double() - want).abs()
-    # the counts (column 0) are exact in float32 below 2^24 rows a group;
-    # on the other columns one dropped row of a ~1.5 M-row group is about
-    # 7e-7 x sum|v|, and a float64 sum cast to float32 is within 6e-8
-    if not torch.equal(got[:, 0].double(), want[:, 0]):
-        raise AssertionError("groupby_sum: the count column is not exact")
-    rel = (err[:, 1:] / scale[:, 1:].clamp(min=1e-300)).max()
-    if not bool((err[:, 1:] <= 2e-7 * scale[:, 1:]).all()):
-        raise AssertionError(f"groupby_sum: error {float(rel):.3g} x sum|v| "
-                             f"exceeds 2e-7")
-    return {
-        "name": "groupby_sum", "shape": f"N={n}, V={v}, G={g} (Q1, 4 live groups)",
-        "max_abs_err": float(err.max()),
-        "max_err_over_sum_abs": float(rel),
-        "tolerance": "column 0 (counts) exact; the others 2e-7 x sum|v| per "
-                     "(group, column), vs float64",
-        "ms": cuda_ms(lambda: ops.groupby_sum(gi, va, g)),
-        "plain_ms": cuda_ms(lambda: ref.groupby_sum_ref(gi, va, g)),
-        "library_ms": cuda_ms(lambda: torch.zeros(
-            (g, v), dtype=torch.float32, device=dev).index_add_(0, gl, va)),
-        **bound(n * 4 + n * v * 4 + g * v * 4, n * v),
-    }
+        _centred_split(vals, 1 + 2 * k,
+                       rng.integers(1, 10_001, n) * (0.01 * 10 ** (k % 3)))
+    q1 = _groupby_case(gids, vals, g, "Q1, 4 live groups", dev)
+    # q2: sum(AdvEngineID), count(*), avg(ResolutionWidth) over all rows,
+    # with the generator's distributions of the two columns
+    n = CB_ROWS
+    vals = np.empty((n, 5), np.float32)
+    vals[:, 0] = 1.0
+    _centred_split(vals, 1, np.where(rng.random(n) < 0.97, 0,
+                                     rng.integers(1, 20, n)).astype(np.float64))
+    widths = np.array([0, 1024, 1280, 1366, 1440, 1536, 1600, 1920, 2560])
+    _centred_split(vals, 3, rng.choice(
+        widths, n, p=[0.08, 0.1, 0.18, 0.22, 0.1, 0.08, 0.1, 0.12, 0.02]
+    ).astype(np.float64))
+    q2 = _groupby_case(np.zeros(n, np.int32), vals, 128,
+                       "ClickBench q2 at 2 M rows, 1 live group", dev)
+    return {**q1, "other_shapes": [q2]}
 
 
 def _probe_rounds(keys, slots_row) -> float:
@@ -299,8 +361,47 @@ def check_expand(rng, dev) -> dict:
     return {**large, "other_shapes": [small]}
 
 
+def _topk_case(keys_np: np.ndarray, k: int, what: str, dev) -> dict:
+    import torch
+    from repro_torch.kernels import ops, ref
+    keys = torch.from_numpy(keys_np).to(dev)
+    got = ops.topk_select(keys, k)
+    torch.cuda.synchronize()
+    want = ref.topk_select_ref(keys, k)
+    if not torch.equal(got, want):
+        bad = int((got != want).sum())
+        raise AssertionError(f"topk_select ({what}): {bad} of {k} indices "
+                             f"differ from the plain version")
+    n = keys.shape[0]
+    return {
+        "name": "topk_select", "shape": f"N={n}, k={k} ({what})",
+        "max_abs_err": 0.0, "tolerance": "exact (indices)",
+        "ms": cuda_ms(lambda: ops.topk_select(keys, k)),
+        "plain_ms": cuda_ms(lambda: ref.topk_select_ref(keys, k)),
+        # its tie order is unspecified: timed, not held
+        "library_ms": cuda_ms(lambda: torch.topk(keys, k, largest=False)),
+        **bound(n * 4 + k * 4, n),
+    }
+
+
+def check_topk(rng, dev) -> dict:
+    """The row is q21's and q22's main-path call at 2,000,000 rows (433
+    groups, LIMIT 10; keys are try_topk's composites of a descending count
+    and a dictionary code); the 2^20-key call with heavy ties goes under
+    ``other_shapes``."""
+    n = 433
+    counts = rng.integers(1, 20_000, n)
+    codes = rng.permutation(n)
+    keys = ((counts.max() - counts) * n + codes).astype(np.float32)
+    main = _topk_case(keys, 10, "q21/q22 at 2 M rows", dev)
+    n = 1_048_573                       # not a multiple of the 1024-key tile
+    ties = rng.integers(0, 1000, n).astype(np.float32)
+    large = _topk_case(ties, 128, "integers 0..999, heavy ties", dev)
+    return {**main, "other_shapes": [large]}
+
+
 # ---------------------------------------------------------------------------
-# phase 4: the main path
+# phase 4: the TPC-H path
 # ---------------------------------------------------------------------------
 
 
@@ -361,16 +462,16 @@ def run_main_path() -> dict:
         after = eng.backend.hit_counts()
         hits = {k: after[k] - before[k] for k in after}
         launches = {k: n - launched[k] for k, n in build.launch_counts().items()}
-        for kind, n in EXPECTED_HITS[qid].items():
-            if hits[kind] < 1:
-                raise AssertionError(f"Q{qid}: no {kind} kernel hit ({hits})")
+        if hits != EXPECTED_HITS[qid]:
+            raise AssertionError(f"Q{qid}: kernel hits {hits}, the reference "
+                                 f"engine's at SF1 are {EXPECTED_HITS[qid]}")
         warm = statistics.median(timed(eng, qid)[1] for _ in range(3))
         results[qid] = {"out": out.to_host(), "hits": hits,
                         "launches": launches, "cold_s": cold, "warm_s": warm}
     launches = build.launch_counts()
-    missing = [k for k, n in launches.items() if n == 0]
+    missing = [k for k in PATH_KERNELS["tpch"] if launches[k] == 0]
     if missing:
-        raise AssertionError(f"kernels never launched on the main path: {missing}")
+        raise AssertionError(f"kernels never launched on the TPC-H path: {missing}")
 
     # the Figure-5 breakdown: profile=True puts a barrier and a timer after
     # every operator (these launches are not counted above)
@@ -394,6 +495,103 @@ def run_main_path() -> dict:
                "max_rel_err": err, "max_rel_err_column": err_col}
         emit({"phase": "query", **row})
         per_query.append(row)
+    return {"launches": launches, "queries": per_query,
+            "generate_s": t_gen, "load_s": t_load}
+
+
+# ---------------------------------------------------------------------------
+# phase 5: the ClickBench path (SQL text through the frontend and optimizer)
+# ---------------------------------------------------------------------------
+
+
+def run_clickbench() -> dict:
+    import torch
+    from repro_torch.core import instrument
+    from repro_torch.core.executor import SiriusEngine
+    from repro_torch.data import clickbench as cb
+    from repro_torch.kernels import build
+
+    t0 = time.perf_counter()
+    db = cb.generate(CB_ROWS, seed=CB_SEED)
+    t_gen = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    eng = SiriusEngine(use_kernels=True)
+    cb.load_into_engine(eng, db)
+    torch.cuda.synchronize()
+    t_load = time.perf_counter() - t0
+    hits_table = eng.buffers.get("hits")
+    plain = SiriusEngine(use_kernels=False)
+    plain.register("hits", hits_table)   # the same device tensors, no copy
+    cat = cb.clickbench_catalog(CB_ROWS)
+    emit({"phase": "clickbench_load", "rows": hits_table.num_rows,
+          "columns": len(hits_table.columns), "generate_s": t_gen,
+          "load_s": t_load, "device_bytes": hits_table.nbytes})
+
+    def timed(engine, qid):
+        t = time.perf_counter()
+        out = engine.sql(cb.CLICKBENCH_QUERIES[qid], catalog=cat)
+        return out, time.perf_counter() - t
+
+    build.reset_launch_counts()
+    runs = {}
+    for qid in cb.CLICKBENCH_QUERIES:
+        before = eng.backend.hit_counts()
+        launched = build.launch_counts()
+        out, cold = timed(eng, qid)
+        after = eng.backend.hit_counts()
+        hits = {k: after[k] - before[k] for k in after}
+        want = _hits(agg=int(qid in CB_AGG), topk=int(qid in CB_TOPK))
+        if hits != want:
+            raise AssertionError(f"ClickBench {qid}: kernel hits {hits}, the "
+                                 f"reference engine's at {CB_ROWS} rows are {want}")
+        launches = {k: n - launched[k] for k, n in build.launch_counts().items()}
+        warm = statistics.median(timed(eng, qid)[1] for _ in range(3))
+        runs[qid] = {"out": out.to_host(), "hits": hits, "launches": launches,
+                     "cold_s": cold, "warm_s": warm}
+    launches = build.launch_counts()
+    missing = [k for k in PATH_KERNELS["clickbench"] if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the ClickBench path: "
+                             f"{missing}")
+
+    # device→host copies inside pipelines on a warm run of each string
+    # query, and the scalar syncs (pull_scalar) a warm run takes
+    for qid in cb.CLICKBENCH_QUERIES:
+        syncs = instrument.scalar_syncs.value
+        with instrument.track_transfers() as counter:
+            timed(eng, qid)
+        runs[qid]["scalar_syncs"] = instrument.scalar_syncs.value - syncs
+        runs[qid]["transfers"] = {"total": counter.total,
+                                  "in_pipeline": counter.in_pipeline}
+        if qid in cb.CLICKBENCH_STRING_QIDS and counter.in_pipeline:
+            raise AssertionError(f"ClickBench {qid}: {counter.in_pipeline} "
+                                 f"device-to-host copies inside pipelines")
+
+    prof = SiriusEngine(use_kernels=True, profile=True)
+    prof.register("hits", hits_table)
+    per_query = []
+    for qid in cb.CLICKBENCH_QUERIES:
+        prof.executor.op_times.clear()
+        prof.sql(cb.CLICKBENCH_QUERIES[qid], catalog=cat)
+        op_times = dict(prof.executor.op_times)
+        ref_out, plain_cold = timed(plain, qid)
+        plain_warm = statistics.median(timed(plain, qid)[1] for _ in range(3))
+        ref_host = ref_out.to_host()
+        err, err_col = compare_tables(runs[qid]["out"], ref_host)
+        r = runs[qid]
+        row = {"query": qid, "rows": len(next(iter(ref_host.values()))),
+               "hits": r["hits"], "launches": r["launches"],
+               "profiled_op_seconds": op_times,
+               "cold_s": r["cold_s"], "warm_s": r["warm_s"],
+               "plain_engine_cold_s": plain_cold,
+               "plain_engine_warm_s": plain_warm,
+               "scalar_syncs_warm": r["scalar_syncs"],
+               "transfers_warm": r["transfers"],
+               "max_rel_err": err, "max_rel_err_column": err_col}
+        emit({"phase": "clickbench_query", **row})
+        per_query.append(row)
+    if int(runs["q0"]["out"]["c"][0]) != CB_ROWS:
+        raise AssertionError(f"q0 counted {runs['q0']['out']['c']} rows")
     return {"launches": launches, "queries": per_query,
             "generate_s": t_gen, "load_s": t_load}
 
@@ -430,19 +628,24 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(SEED)
     kernels = []
-    for check in (check_filter, check_groupby, check_probe, check_expand):
+    for check in (check_filter, check_groupby, check_probe, check_expand,
+                  check_topk):
         row = check(rng, dev)
         emit({"phase": "kernel", **row})
         kernels.append(row)
 
     report["main_path"] = run_main_path()
-    launches = report["main_path"]["launches"]
+    report["clickbench"] = run_clickbench()
+    by_path = {"tpch": report["main_path"]["launches"],
+               "clickbench": report["clickbench"]["launches"]}
     line = []
     for row in kernels:
         name = row["name"]
         line.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
-            "replaces": REPLACES[name], "launches": launches[name],
+            "replaces": REPLACES[name],
+            "launches": sum(p[name] for p in by_path.values()),
+            "launches_by_path": {p: c[name] for p, c in by_path.items()},
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],

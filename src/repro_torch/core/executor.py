@@ -15,8 +15,9 @@ Two modes, as the reference's ``compile_pipelines=False`` path has them:
   operator, accumulated per category in ``op_times`` for the Figure-5
   breakdown.
 
-Compiled pipelines, the plan cache, SQL, ``accelerate`` and EXPLAIN ANALYZE
-are later slices of the port.  All worker threads launch on the device's
+Compiled pipelines, the plan cache, ``accelerate`` and EXPLAIN ANALYZE are
+later slices of the port; ``SiriusEngine.sql`` runs SQL text through the
+frontend and optimizer.  All worker threads launch on the device's
 current stream, so the device runs their work in submission order.
 """
 from __future__ import annotations
@@ -514,10 +515,36 @@ class SiriusEngine:
         self.backend = backend
         self.executor = PipelineExecutor(self.buffers, num_workers, morsel_rows,
                                          backend, profile=profile)
+        # host-side string dictionaries harvested at registration — kept
+        # instead of the Tables themselves so the buffer manager stays free
+        # to spill device columns
+        self.table_dictionaries: Dict[str, Dict[str, object]] = {}
 
     def register(self, name: str, table: Table):
         """Cache ``table`` on the engine's device under ``name``."""
         self.buffers.cache_table(name, table)
+        dicts = {c: col.dictionary for c, col in table.columns.items()
+                 if col.dictionary is not None}
+        if dicts:
+            self.table_dictionaries[name] = dicts
+        else:
+            # re-registration may drop string columns; never leave stale
+            # dictionaries steering the optimizer's selectivity estimates
+            self.table_dictionaries.pop(name, None)
 
     def execute(self, plan: Rel) -> Table:
         return self.executor.execute(plan)
+
+    def sql(self, text: str, catalog=None, optimize: bool = True) -> Table:
+        """SQL text → parse → optimize → execute.
+
+        The optimizer's catalog (default: TPC-H at SF 1) is enriched with
+        the registered tables' string dictionaries, so LIKE / IN / prefix
+        predicates are costed by their dictionary hit rate.  The reference's
+        warm front door (plan cache), journal span and ``EXPLAIN ANALYZE``
+        are not ported yet; ``EXPLAIN ANALYZE`` raises."""
+        from ..sql import run_sql
+        from ..sql.binder import DEFAULT_CATALOG
+        cat = (catalog or DEFAULT_CATALOG).with_dictionaries(
+            self.table_dictionaries)
+        return run_sql(text, self, catalog=cat, optimize=optimize)

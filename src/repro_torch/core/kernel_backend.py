@@ -15,8 +15,8 @@ On CPU tensors each kernel wrapper runs its plain version instead.
                 segment ops for min/max.
   * expand    — the eager join's run expansion (multi-match inner/left) →
                 ``join_expand``.
-  * topk      — the eligibility checks only: the top-k kernel is not ported
-                yet, so where the reference would launch it this raises.
+  * topk      — ORDER BY + LIMIT over integer/date/string-code keys packed
+                into one f32-exact composite → ``topk_select``.
 
 Numerical note for the aggregate path: the kernel sums float32, so each
 additive column is centered by its f64 mean (the sums carry deviations, not
@@ -268,17 +268,21 @@ class KernelBackend:
 
     # -- top-k for ORDER BY + LIMIT --------------------------------------------
     def try_topk(self, t: Table, keys, limit) -> Optional[Table]:
-        """The reference's top-k eligibility contract.
+        """Route an eligible ORDER BY + LIMIT to the ``topk_select`` kernel.
 
-        Returns None wherever the reference does (the caller sorts); where
-        the reference would launch its ``topk_select`` kernel this raises,
-        since that kernel has no CUDA port yet."""
+        Contract: integer-coded sort keys (numeric ints, dates, or string
+        dictionary codes — order-preserving) packed into one composite rank
+        whose range stays f32-exact (at most 2^24), and 0 < limit <= 128.
+        The kernel is tie-stable, so results are row-exact against the
+        generic lexsort.  Per-key min and max are read with ``pull_scalar``.
+        """
         if limit is None or not (0 < limit <= 128) or not keys:
             return None
         if any(k.name not in t for k in keys):
             return None
         if t.num_rows <= limit:
             return None
+        comps = []
         total = 1
         for k in keys:
             c = t[k.name]
@@ -286,9 +290,18 @@ class KernelBackend:
                 return None
             lo = int(pull_scalar(c.data.min()))
             hi = int(pull_scalar(c.data.max()))
-            total *= hi - lo + 1
+            span = hi - lo + 1
+            v = c.data - lo
+            if not k.ascending:
+                v = (span - 1) - v
+            comps.append((v, span))
+            total *= span
             if total > 2**24:      # composite must stay exact in f32
                 return None
-        raise NotImplementedError(
-            "ORDER BY ... LIMIT routes to the topk_select kernel, which has "
-            "no CUDA port yet")
+        comp, _ = comps[0]
+        for v, span in comps[1:]:
+            comp = comp * span + v
+        idx = kops.topk_select(comp.to(torch.float32), limit)
+        self.topk_hits += 1
+        METRICS.counter("kernel.topk_hits").inc()
+        return t.take(idx)

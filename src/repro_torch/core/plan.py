@@ -95,6 +95,31 @@ class ExchangeRel(Rel):
 
 
 @dataclasses.dataclass
+class SetRel(Rel):
+    """Set operation (UNION ALL): interchange vocabulary only, not run by
+    the device pipeline engine."""
+    operands: List[Rel]
+    op: str = "union_all"
+
+
+@dataclasses.dataclass
+class WindowRel(Rel):
+    """Window function over partitions (no frame clause).
+
+    ``row_number``/``rank`` rank rows within a partition by ``order_keys``;
+    aggregate functions (sum/count/avg/min/max over ``arg``) broadcast the
+    partition-wide value to every row.  Like SetRel, not run by the device
+    pipeline engine.
+    """
+    input: Rel
+    partition_keys: List[str]
+    order_keys: List[SortKey]
+    func: str                                     # row_number|rank|sum|count|avg|min|max
+    arg: Optional[str] = None                     # input column (aggregates)
+    name: str = "__window"
+
+
+@dataclasses.dataclass
 class ScalarSubquery(Expr):
     """Uncorrelated scalar subquery — executed first, bound as a literal.
 
@@ -157,9 +182,63 @@ def explain(plan: Rel, indent: int = 0) -> str:
             extra += f" limit={plan.limit}"
     elif isinstance(plan, ExchangeRel):
         extra = f" {plan.kind} keys={plan.keys}"
+    elif isinstance(plan, SetRel):
+        extra = f" {plan.op} over {len(plan.operands)} inputs"
+    elif isinstance(plan, WindowRel):
+        extra = f" {plan.func}"
+        if plan.arg:
+            extra += f"({plan.arg})"
+        extra += f" partition by {plan.partition_keys}"
+        if plan.order_keys:
+            extra += " order by " + ", ".join(
+                k.name + ("" if k.ascending else " desc")
+                for k in plan.order_keys)
+        extra += f" as {plan.name}"
     if plan.estimated_rows is not None:
         extra += f"  [~{plan.estimated_rows:,.0f} rows]"
     lines = [f"{pad}{name}{extra}"]
     for child in plan.inputs():
         lines.append(explain(child, indent + 1))
     return "\n".join(lines)
+
+
+def plan_equal(a: Rel, b: Rel) -> bool:
+    """Structural equality over plan trees.
+
+    The dataclass-generated ``__eq__`` on Rel nodes is unusable because the
+    embedded Expr nodes overload ``==`` to *build* comparison expressions;
+    this compares node types and fields recursively instead.
+    """
+    from ..relational.expressions import expr_equal
+
+    if type(a) is not type(b):
+        return False
+    if isinstance(a, AggSpec):
+        return (a.fn == b.fn and a.name == b.name
+                and expr_equal(a.expr, b.expr, rel_eq=plan_equal))
+    if isinstance(a, SortKey):
+        return a.name == b.name and a.ascending == b.ascending
+    for f in dataclasses.fields(a):
+        va, vb = getattr(a, f.name), getattr(b, f.name)
+        if isinstance(va, Rel) or isinstance(vb, Rel):
+            if not (isinstance(va, Rel) and isinstance(vb, Rel)
+                    and plan_equal(va, vb)):
+                return False
+        elif isinstance(va, Expr) or isinstance(vb, Expr):
+            if not expr_equal(va, vb, rel_eq=plan_equal):
+                return False
+        elif isinstance(va, (list, tuple)) and isinstance(vb, (list, tuple)):
+            if len(va) != len(vb):
+                return False
+            for xa, xb in zip(va, vb):
+                if isinstance(xa, Rel):
+                    if not (isinstance(xb, Rel) and plan_equal(xa, xb)):
+                        return False
+                elif isinstance(xa, (AggSpec, SortKey)):
+                    if not plan_equal(xa, xb):
+                        return False
+                elif not expr_equal(xa, xb, rel_eq=plan_equal):
+                    return False
+        elif va != vb:
+            return False
+    return True

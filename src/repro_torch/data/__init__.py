@@ -1,1 +1,1 @@
-"""TPC-H data generator and hand-built query plans."""
+"""TPC-H and ClickBench data generators, TPC-H plans and SQL text."""

@@ -22,7 +22,7 @@ from typing import Optional
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("filter_count.cu", "groupby_agg.cu", "hash_probe.cu",
-           "join_expand.cu", "errors.cu")
+           "join_expand.cu", "topk.cu", "errors.cu")
 ARCH = "arch=compute_90a,code=sm_90a"
 NVCC_FLAGS = ("-gencode", ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
@@ -34,6 +34,7 @@ SIGNATURES = {
     "repro_groupby_sum": (_P, _P, _P, _P, _I64, _I32, _I32, _I32, _I32, _I32, _P),
     "repro_hash_probe": (_P, _P, _P, _P, _P, _I64, _I32, _I32, _P),
     "repro_join_expand": (_P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _P),
+    "repro_topk_select": (_P, _I64, _I32, _P, _P, _P),
 }
 
 _lock = threading.Lock()
@@ -131,10 +132,14 @@ def check(err: int, name: str) -> None:
 
 
 # ---------------------------------------------------------------------------
-# launch counts: each wrapper adds one where it launches its kernel
+# launch counts: each wrapper adds one where it launches its kernel, so a
+# count is of wrapper calls that reached the card.  A call may run more than
+# one grid: groupby_sum's partial and merge passes, and topk_select's rounds
+# (one while n <= 1024 keys, as on the ClickBench path, more above that).
 # ---------------------------------------------------------------------------
 
-KERNELS = ("filter_mask_counts", "groupby_sum", "hash_probe", "join_expand")
+KERNELS = ("filter_mask_counts", "groupby_sum", "hash_probe", "join_expand",
+           "topk_select")
 _counts_lock = threading.Lock()
 _launches = {k: 0 for k in KERNELS}
 

@@ -12,11 +12,12 @@ from .filter_count import filter_mask_counts
 from .groupby_agg import groupby_sum
 from .hash_probe import build_table32, hash_probe
 from .join_expand import join_expand
+from .topk import topk_select
 
 __all__ = [
     "bucket_size", "build_table32", "compact", "filter_mask_counts",
     "filter_select", "groupby_sum", "groupby_sum_large", "hash_probe",
-    "join_expand", "map_probe_keys", "pad_rows", "sorted_build",
+    "join_expand", "map_probe_keys", "pad_rows", "sorted_build", "topk_select",
 ]
 
 _GROUP_BUDGET = 4096                      # groups per groupby_sum call

@@ -1,8 +1,10 @@
-"""Plain PyTorch versions of the four CUDA kernels (the correctness contracts).
+"""Plain PyTorch versions of the five CUDA kernels (the correctness contracts).
 
 The wrappers use them for CPU tensors; ``chip_smoke.py`` holds each kernel
 against them on the card.  The first three port ``repro/kernels/ref.py``;
-``join_expand_ref`` ports ``repro/relational/join.py::_join_expand``.
+``join_expand_ref`` ports ``repro/relational/join.py::_join_expand``;
+``topk_select_ref`` states the semantics of ``repro/kernels/topk.py``,
+which has no plain version in the reference.
 """
 from __future__ import annotations
 
@@ -39,14 +41,16 @@ def filter_mask_counts_ref(cols: torch.Tensor, lo: torch.Tensor,
 
 def groupby_sum_ref(gids: torch.Tensor, values: torch.Tensor,
                     n_groups: int) -> torch.Tensor:
-    """Segment-sum (N,V) by gid, dropping out-of-range gids → (G,V) f32."""
+    """Segment-sum (N,V) by gid, dropping out-of-range gids → (G,V) f32.
+
+    Sums in float64 and rounds once to float32, as the CUDA kernel does."""
     gids = gids.to(torch.int64)
     ok = (gids >= 0) & (gids < n_groups)
     safe = torch.where(ok, gids, n_groups)
-    vals = torch.where(ok[:, None], values.to(torch.float32), 0.0)
-    out = torch.zeros((n_groups + 1, values.shape[1]), dtype=torch.float32,
+    vals = torch.where(ok[:, None], values.to(torch.float64), 0.0)
+    out = torch.zeros((n_groups + 1, values.shape[1]), dtype=torch.float64,
                       device=values.device)
-    return out.index_add_(0, safe, vals)[:-1]
+    return out.index_add_(0, safe, vals)[:-1].to(torch.float32)
 
 
 def hash_probe_ref(probe_keys: torch.Tensor, slots_key: torch.Tensor,
@@ -102,3 +106,12 @@ def join_expand_ref(order: torch.Tensor, lo: torch.Tensor,
     build_pos = torch.where(matched, torch.clamp(build_pos, 0, max(nb - 1, 0)),
                             0)
     return probe_idx, order[build_pos], matched
+
+
+def topk_select_ref(keys: torch.Tensor, k: int) -> torch.Tensor:
+    """The first ``k`` indices (int32) of a stable ascending sort of the
+    float32 keys: ties go to the smaller row, and -0.0 equals +0.0, as the
+    TPU kernel's ``==`` has it."""
+    keys = keys.to(torch.float32)
+    keys = torch.where(keys == 0, torch.zeros_like(keys), keys)
+    return torch.sort(keys, stable=True).indices[:k].to(torch.int32)

@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
-"""Where a warm TPC-H query's time goes on the GPU, for the PyTorch/CUDA port.
+"""Where a warm query's time goes on the GPU, for the PyTorch/CUDA port.
 
 Loads TPC-H (default SF1) into ``repro_torch``'s ``SiriusEngine`` with the
 kernel backend on the card, warms each of Q1, Q6, Q3, Q5 once, then runs
-each once under ``torch.profiler`` (CPU and CUDA activity) and prints, per
-query, one JSON line with:
+each once under ``torch.profiler`` (CPU and CUDA activity); with
+``--clickbench`` it does the same for the 15 ClickBench queries through
+``SiriusEngine.sql`` on a hits sample of 2,000,000 rows.  It prints,
+per query, one JSON line with:
 
 * ``wall_ms`` — host wall clock of the profiled run (profiling adds host
   overhead, so this is above the unprofiled warm time of ``chip_smoke.py``);
@@ -17,7 +19,8 @@ query, one JSON line with:
   self time by operator, the largest first.
 
 Run on a machine with a card, from the root of a checkout:
-``PYTHONPATH=src python3 -m repro_torch.profile_tpch [--sf 1.0] [--out FILE]``.
+``PYTHONPATH=src python3 -m repro_torch.profile_tpch [--sf 1.0] [--out FILE]``
+or ``... -m repro_torch.profile_tpch --clickbench``.
 """
 from __future__ import annotations
 
@@ -29,6 +32,7 @@ from collections import defaultdict
 from pathlib import Path
 
 ORDER = (1, 6, 3, 5)
+CB_ROWS = 2_000_000      # the hits sample chip_smoke.py drives
 WAITS = ("aten::item", "cudaDeviceSynchronize")
 
 
@@ -42,7 +46,8 @@ def _busy_ms(intervals) -> float:
     return total / 1e3
 
 
-def profile_query(eng, plan, top: int) -> dict:
+def profile_query(run, top: int) -> dict:
+    """Profile one call of ``run()`` (a query on an engine)."""
     import torch
     from torch._C._profiler import _ExperimentalConfig
     from torch.profiler import ProfilerActivity, profile
@@ -51,7 +56,7 @@ def profile_query(eng, plan, top: int) -> dict:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  experimental_config=config) as prof:
         t0 = time.perf_counter()
-        eng.execute(plan)
+        run()
         wall = (time.perf_counter() - t0) * 1e3
     device, host = defaultdict(float), defaultdict(float)
     intervals, syncs = [], 0
@@ -76,6 +81,8 @@ def profile_query(eng, plan, top: int) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--sf", type=float, default=1.0)
+    ap.add_argument("--clickbench", action="store_true",
+                    help="profile the ClickBench queries instead of TPC-H")
     ap.add_argument("--top", type=int, default=8)
     ap.add_argument("--out", default=None, help="also write the lines here")
     args = ap.parse_args()
@@ -84,17 +91,27 @@ def main() -> int:
         print("profile_tpch: no CUDA device", file=sys.stderr)
         return 2
     from .core.executor import SiriusEngine
-    from .data.tpch import generate, load_into_engine
-    from .data.tpch_queries import QUERIES
 
     eng = SiriusEngine(use_kernels=True)
-    load_into_engine(eng, generate(args.sf))
+    if args.clickbench:
+        from .data import clickbench as cb
+        cb.load_into_engine(eng, cb.generate(CB_ROWS))
+        cat = cb.clickbench_catalog(CB_ROWS)
+        scale = {"rows": CB_ROWS}
+        runs = {qid: (lambda sql=sql: eng.sql(sql, catalog=cat))
+                for qid, sql in cb.CLICKBENCH_QUERIES.items()}
+    else:
+        from .data.tpch import generate, load_into_engine
+        from .data.tpch_queries import QUERIES
+        load_into_engine(eng, generate(args.sf))
+        scale = {"sf": args.sf}
+        runs = {f"Q{qid}": (lambda q=QUERIES[qid]: eng.execute(q()))
+                for qid in ORDER}
     lines = []
-    for qid in ORDER:
-        eng.execute(QUERIES[qid]())                  # warm
-        row = {"query": f"Q{qid}", "sf": args.sf,
-               "card": torch.cuda.get_device_name(0),
-               **profile_query(eng, QUERIES[qid](), args.top)}
+    for qid, run in runs.items():
+        run()                                        # warm
+        row = {"query": qid, **scale, "card": torch.cuda.get_device_name(0),
+               **profile_query(run, args.top)}
         print(json.dumps(row), flush=True)
         lines.append(row)
     if args.out:

@@ -266,6 +266,23 @@ def expr_equal(a, b, rel_eq=None) -> bool:
     return a == b
 
 
+def split_conjuncts(e: Optional[Expr]) -> List[Expr]:
+    """Flatten an AND tree into its conjuncts (None → [])."""
+    if e is None:
+        return []
+    if isinstance(e, BinOp) and e.op == "and":
+        return split_conjuncts(e.left) + split_conjuncts(e.right)
+    return [e]
+
+
+def and_all(conjuncts: Sequence[Expr]) -> Optional[Expr]:
+    """Rebuild an AND tree from conjuncts ([] → None)."""
+    out: Optional[Expr] = None
+    for c in conjuncts:
+        out = c if out is None else BinOp("and", out, c)
+    return out
+
+
 # ---------------------------------------------------------------------------
 # evaluation
 # ---------------------------------------------------------------------------
@@ -517,7 +534,7 @@ def _year_from_days(days: torch.Tensor) -> torch.Tensor:
 
 __all__ = [
     "Between", "BinOp", "Case", "Cast", "Col", "DateLit", "Expr", "ExtractYear",
-    "InList", "Like", "Lit", "StartsWith", "Substr", "UnOp", "evaluate",
-    "expr_children", "expr_equal", "transform_expr",
-    "walk_expr",
+    "InList", "Like", "Lit", "StartsWith", "Substr", "UnOp", "and_all",
+    "evaluate", "expr_children", "expr_equal", "split_conjuncts",
+    "transform_expr", "walk_expr",
 ]

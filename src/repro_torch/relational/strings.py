@@ -211,3 +211,41 @@ def recode_map(src: np.ndarray, target: np.ndarray, device) -> torch.Tensor:
     """Device int32 map from ``src`` codes to ``target`` codes (-1 = absent)."""
     return _on_device((src, target), "recode", (),
                       lambda: _recode_host(src, target), device)
+
+
+# ---------------------------------------------------------------------------
+# dictionary-informed selectivity (optimizer stats hooks)
+# ---------------------------------------------------------------------------
+
+
+def like_selectivity(dictionary: np.ndarray, pattern: str) -> float:
+    """Fraction of dictionary entries matching the pattern (hit rate).
+
+    Codes are treated as uniform (no per-code frequencies)."""
+    n = len(dictionary)
+    if n == 0:
+        return 0.0
+    return float(like_host_mask(dictionary, pattern).sum()) / n
+
+
+def in_selectivity(dictionary: np.ndarray, values: Sequence[str]) -> float:
+    n = len(dictionary)
+    if n == 0:
+        return 0.0
+    hits = sum(1 for v in values if exact_code(dictionary, str(v)) is not None)
+    return hits / n
+
+
+def prefix_selectivity(dictionary: np.ndarray, prefix: str) -> float:
+    n = len(dictionary)
+    if n == 0:
+        return 0.0
+    lo, hi = prefix_range(dictionary, prefix)
+    return (hi - lo) / n
+
+
+def eq_selectivity(dictionary: np.ndarray, literal: str) -> float:
+    n = len(dictionary)
+    if n == 0:
+        return 0.0
+    return (1.0 if exact_code(dictionary, literal) is not None else 0.0) / n

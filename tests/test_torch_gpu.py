@@ -37,7 +37,8 @@ def test_filter_mask_counts_on_card(dev, n, c):
 
 
 @pytest.mark.parametrize("n,g,v", [(1, 1, 1), (5000, 7, 3), (200_000, 4096, 3),
-                                   (300_000, 128, 15), (10_000, 3000, 5)])
+                                   (300_000, 128, 15), (10_000, 3000, 5),
+                                   (2_000_000, 1, 5)])
 def test_groupby_sum_on_card(dev, n, g, v):
     """Within 1e-6 x sum|v| of the float64 sum of the same float32 inputs."""
     rng = np.random.default_rng(n + g + v)
@@ -139,3 +140,75 @@ def test_engine_kernel_path_matches_generic_on_card(dev, qid):
             np.testing.assert_allclose(got[k], want[k], rtol=1e-6, atol=1e-6)
         else:
             assert (got[k] == want[k]).all(), k
+
+
+@pytest.mark.parametrize("n,k,ties", [(433, 10, False), (1_048_573, 128, True),
+                                      (1, 1, False), (1_025, 128, True),
+                                      (300_000, 1, False)])
+def test_topk_select_on_card(dev, n, k, ties):
+    """Exact indices against the plain version (a stable sort)."""
+    rng = np.random.default_rng(n + k)
+    x = (rng.integers(0, 1000, n) if ties else rng.normal(size=n)).astype(np.float32)
+    x[: min(n, 4)] = np.array([0.0, -0.0, 0.0, -0.0], np.float32)[: min(n, 4)]
+    keys = torch.from_numpy(x).to(dev)
+    got = ops.topk_select(keys, k)
+    assert got.dtype == torch.int32 and got.is_cuda
+    assert torch.equal(got, ref.topk_select_ref(keys, k))
+
+
+def test_topk_select_rejects_what_it_does_not_take(dev):
+    with pytest.raises(ValueError):
+        ops.topk_select(torch.zeros(10, device=dev), 11)
+    with pytest.raises(ValueError):
+        ops.topk_select(torch.zeros(1000, device=dev), 129)
+    with pytest.raises(ValueError):
+        ops.topk_select(torch.zeros(10, dtype=torch.float64, device=dev), 1)
+
+
+# ClickBench at 20,000 rows: kernel hits per query on the reference engine
+CB_AGG = ("q0", "q1", "q2", "q6", "q12", "q14", "q20", "q21", "q43x", "q44x")
+CB_TOPK = ("q8", "q12", "q14", "q21", "q22", "q44x")
+
+
+@pytest.fixture(scope="module")
+def clickbench_engines():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.core.executor import SiriusEngine
+    from repro_torch.data import clickbench as cb
+    fast = SiriusEngine(use_kernels=True)
+    cb.load_into_engine(fast, cb.generate(20_000))
+    plain = SiriusEngine(use_kernels=False)
+    plain.register("hits", fast.buffers.get("hits"))
+    return fast, plain, cb.clickbench_catalog(20_000)
+
+
+@pytest.mark.parametrize("qid", ["q0", "q1", "q2", "q4", "q5", "q6", "q8",
+                                 "q10", "q12", "q14", "q20", "q21", "q22",
+                                 "q43x", "q44x"])
+def test_clickbench_kernel_path_matches_generic_on_card(clickbench_engines, qid):
+    from repro_torch.core import instrument
+    from repro_torch.data.clickbench import CLICKBENCH_QUERIES, CLICKBENCH_STRING_QIDS
+    fast, plain, cat = clickbench_engines
+    sql = CLICKBENCH_QUERIES[qid]
+    before = fast.backend.hit_counts()
+    build.reset_launch_counts()
+    got = fast.sql(sql, catalog=cat).to_host()
+    after = fast.backend.hit_counts()
+    launched = build.launch_counts()
+    hits = {k: after[k] - before[k] for k in after}
+    assert hits == dict(filter=0, probe=0, agg=int(qid in CB_AGG), expand=0,
+                        topk=int(qid in CB_TOPK))
+    assert launched["topk_select"] == hits["topk"]
+    assert launched["groupby_sum"] >= hits["agg"]
+    want = plain.sql(sql, catalog=cat).to_host()
+    assert set(got) == set(want)
+    for k in want:
+        if want[k].dtype.kind == "f":
+            np.testing.assert_allclose(got[k], want[k], rtol=1e-6, atol=1e-6)
+        else:
+            assert (got[k] == want[k]).all(), k
+    if qid in CLICKBENCH_STRING_QIDS:
+        with instrument.track_transfers() as counter:
+            fast.sql(sql, catalog=cat)
+        assert counter.in_pipeline == 0

@@ -26,7 +26,8 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
     code = (
         "import sys, repro_torch, repro_torch.core.executor, "
         "repro_torch.core.kernel_backend, repro_torch.data.tpch_queries, "
-        "repro_torch.kernels.ops\n"
+        "repro_torch.kernels.ops, repro_torch.sql, repro_torch.optimizer, "
+        "repro_torch.data.clickbench\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
         "print(','.join(bad))\n")

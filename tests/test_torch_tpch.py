@@ -141,14 +141,19 @@ def test_engine_without_a_card_raises(monkeypatch):
 
 
 def test_topk_route_raises_where_the_reference_launches_its_kernel(engines):
-    from repro_torch.relational.sort import SortKey
+    """Where the reference launches ``topk_select`` the port now launches
+    its own (the plain version on CPU tensors) and counts a hit; outside
+    the kernel's contract it declines, as the reference does."""
+    from repro_torch.relational.sort import SortKey, sort_table
     from repro_torch.relational.table import Table
     backend = engines[True].backend
     t = Table.from_pydict({"a": np.arange(500, dtype=np.int64),
                            "f": np.linspace(0, 1, 500)})
-    with pytest.raises(NotImplementedError, match="topk_select"):
-        backend.try_topk(t, [SortKey("a", False)], 10)
-    # outside the kernel's contract it declines, as the reference does
+    before = backend.topk_hits
+    got = backend.try_topk(t, [SortKey("a", False)], 10)
+    assert backend.topk_hits == before + 1
+    assert_tables_equal(got.to_host(),
+                        sort_table(t, [SortKey("a", False)], 10).to_host())
     assert backend.try_topk(t, [SortKey("f")], 10) is None
     assert backend.try_topk(t, [SortKey("a")], None) is None
     assert backend.try_topk(t, [SortKey("a")], 500) is None

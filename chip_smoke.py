@@ -5,7 +5,7 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It imports
 nothing of JAX or of the JAX package ``repro``, and:
 
 1. prints the card's name and power limit (``nvidia-smi``);
-2. builds the five CUDA kernels from ``src/repro_torch/csrc``;
+2. builds the six CUDA kernels from ``src/repro_torch/csrc``;
 3. calls each kernel's wrapper on the card at the shapes its main path
    gives it (TPC-H at SF1, ClickBench at 2,000,000 rows), from inputs made
    with a numpy seed, and holds the result against the kernel's plain
@@ -15,10 +15,19 @@ nothing of JAX or of the JAX package ``repro``, and:
    (group, column): both sum in float64 in different orders and round to
    float32, and a relative tolerance fails on centred sums near zero.
    ``groupby_sum`` is held at Q1's call and at ClickBench q2's one-group
-   call, ``join_expand`` at both of Q5's calls and ``topk_select`` at a
-   main-path shape and at a 2^20-key shape with heavy ties.  Each kernel,
-   its plain version and (for the group-by and the top-k) one library call
-   are timed with CUDA events;
+   call, ``join_expand`` at both of Q5's calls, ``topk_select`` at a
+   main-path shape and at a 2^20-key shape with heavy ties, and
+   ``decode_attention`` at the server's shape (batch 8, llama3.2-3b's
+   heads, an 8192-row bf16 cache), at 32,768 rows and in float32 with
+   group 7: 2e-5 in float32 and 3e-2 in bf16 (the reference's tolerances)
+   against the plain version, and in bf16 also element by element against
+   the plain version on the inputs cast to float32, unrounded, within half
+   a bf16 ulp of that value plus 1e-5 (``decode_limit_ratio``).  Two
+   deliberately wrong versions are read against the same limit (scores
+   rounded to bf16; each row's last valid position dropped), and the
+   second must fail it.  Each kernel, its plain version
+   and (for the group-by, the top-k and the decode attention) one library
+   call are timed with CUDA events;
 4. drives the TPC-H path: SF1 data, ``SiriusEngine(use_kernels=True)`` on
    the card, Q1, Q6, Q3 and Q5 from fresh plans (a cold run and the median
    of three warm runs each).  It holds the per-query kernel hits equal to
@@ -33,7 +42,21 @@ nothing of JAX or of the JAX package ``repro``, and:
    scale, checks that ``groupby_sum`` and ``topk_select`` launched in this
    phase, compares the results as in phase 4, and counts device→host copies
    inside pipelines on a warm run of each string query (must be 0);
-6. prints the kernels' JSON line, then as its last line
+6. drives the LM serving path: ``serve_lm``'s workload (``llama3.2-3b``
+   at full width, 28 layers, random bf16 weights from its seed) on the
+   card.  For models and tokens from three seeds, teacher-forced
+   ``decode_step`` logits (through the decode-attention kernel) are held
+   against the parallel forward's (plain blockwise attention) on 2 prompts
+   of 256 tokens: max |delta log-softmax| within ``LOGPROB_LIMIT``, and the
+   greedy tokens equal wherever the forward's top-2 margin exceeds twice
+   it (an error within the limit moves a margin by at most twice it).
+   Then ``serve`` answers the workload's 8 requests (prompts of 64-512
+   tokens, 32 new tokens each, an 8192-row cache), the kernel must launch
+   once per layer and step, and every generated token is held against the
+   forward's greedy choice over the same sequence in the same way.  It
+   prints the prefill and decode tokens/s, the median decode step and the
+   peak device memory;
+7. prints the kernels' JSON line, then as its last line
    ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero before that last line.  Without a CUDA device,
@@ -93,6 +116,7 @@ REPLACES = {
     "hash_probe": "src/repro/kernels/hash_probe.py:101",
     "join_expand": "src/repro/kernels/join_expand.py:62",
     "topk_select": "src/repro/kernels/topk.py:60",
+    "decode_attention": "src/repro/kernels/decode_attention.py:68",
 }
 SOURCES = {
     "filter_mask_counts": "src/repro_torch/csrc/filter_count.cu",
@@ -100,12 +124,33 @@ SOURCES = {
     "hash_probe": "src/repro_torch/csrc/hash_probe.cu",
     "join_expand": "src/repro_torch/csrc/join_expand.cu",
     "topk_select": "src/repro_torch/csrc/topk.cu",
+    "decode_attention": "src/repro_torch/csrc/decode_attention.cu",
 }
 # the kernels each main path must launch
 PATH_KERNELS = {
     "tpch": ("filter_mask_counts", "groupby_sum", "hash_probe", "join_expand"),
     "clickbench": ("groupby_sum", "topk_select"),
+    "lm_serve": ("decode_attention",),
 }
+
+# decode_attention in bf16 against the plain version on float32 inputs:
+# the kernel rounds a float32 result once, which moves it by at most half
+# a bf16 ulp (<= 2^-8 of its size); float32 sums in another order add far
+# less than 1e-5 at these lengths
+BF16_HALF_ULP, F32_NOISE = 2.0 ** -8, 1e-5
+
+# the LM serving path runs serve_lm's workload (ARCH, BATCH, PROMPT_LENS,
+# N_NEW, MAX_CACHE, SEED); the decode-vs-forward check runs 2 prompts of
+# 256 tokens on models and tokens from LM_CHECK_SEEDS seeds
+LM_CHECK = (2, 256)
+LM_CHECK_SEEDS = 3
+# max |delta log-softmax| between teacher-forced decode and the forward in
+# bf16: both round the residual stream to bf16, at other points (their
+# matmuls split the sums differently, and the forward's attention output is
+# rounded once per block).  Set at about twice this script's first reading
+# (0.116 on an NVIDIA H100 80GB HBM3, 700 W, one seed); it prints the
+# reading at each seed
+LOGPROB_LIMIT = 0.25
 
 
 def emit(obj) -> None:
@@ -400,6 +445,117 @@ def check_topk(rng, dev) -> dict:
     return {**main, "other_shapes": [large]}
 
 
+def _decode_bf16_scores(q, k, v, n):
+    """A control: the plain version with its scores rounded to bf16."""
+    import torch
+    b, h, d = q.shape
+    s, kvh = k.shape[1], k.shape[2]
+    qg = q.reshape(b, kvh, h // kvh, d).float()
+    sc = torch.einsum("bkgd,bskd->bkgs", qg, k.float()) / (d ** 0.5)
+    sc = sc.to(torch.bfloat16).float()
+    pos = torch.arange(s, device=q.device)[None, None, None, :]
+    sc = torch.where(pos < n[:, None, None, None], sc, -1e30)
+    out = torch.einsum("bkgs,bskd->bkgd", torch.softmax(sc, -1), v.float())
+    return out.reshape(b, h, d).to(q.dtype)
+
+
+def _decode_case(b: int, h: int, kvh: int, d: int, s: int, lengths,
+                 dtype: str, what: str, rng, dev) -> dict:
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops, ref
+    tdt = getattr(torch, dtype)
+
+    def draw(*shape):
+        return torch.from_numpy(rng.standard_normal(shape, np.float32)).to(dev, tdt)
+
+    q, k, v = draw(b, h, d), draw(b, s, kvh, d), draw(b, s, kvh, d)
+    n = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    got = ops.decode_attention(q, k, v, n)
+    torch.cuda.synchronize()
+    want = ref.decode_attention_ref(q, k, v, n)
+    tol = 2e-5 if dtype == "float32" else 3e-2
+    err = float((got.float() - want.float()).abs().max())
+    if not torch.allclose(got.float(), want.float(), rtol=tol, atol=tol):
+        raise AssertionError(f"decode_attention ({what}): max abs error "
+                             f"{err:.3g} exceeds {tol} (rtol and atol)")
+    tight = {}
+    if dtype == "bfloat16":
+        exact = ref.decode_attention_ref(q.float(), k.float(), v.float(), n)
+        limit = BF16_HALF_ULP * exact.abs() + F32_NOISE
+
+        def ratio(x):      # the largest |x - exact| over its limit
+            return float(((x.float() - exact).abs() / limit).max())
+
+        dropped = torch.where(n >= 2, n.clamp(max=s) - 1, n)
+        tight = {"decode_limit_ratio": ratio(got),
+                 "control_bf16_scores_ratio": ratio(_decode_bf16_scores(q, k, v, n)),
+                 "control_last_row_dropped_ratio": ratio(
+                     ref.decode_attention_ref(q, k, v, dropped))}
+        if not tight["decode_limit_ratio"] <= 1.0:
+            raise AssertionError(
+                f"decode_attention ({what}): {tight['decode_limit_ratio']:.3g} "
+                f"times half a bf16 ulp + {F32_NOISE} off the float32 value")
+        if not tight["control_last_row_dropped_ratio"] > 1.0:
+            raise AssertionError(f"decode_attention ({what}): the limit does "
+                                 f"not catch a dropped row")
+    # the library yardstick: SDPA over k and v laid out (B, KVH, S, D) in
+    # advance, a boolean mask per row; rows with lengths <= 0 (all masked)
+    # have no SDPA counterpart and are left out of its check
+    q4, kl, vl = q[:, :, None], k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
+    mask = (torch.arange(s, device=dev)[None, :] < n[:, None])[:, None, None, :]
+
+    def sdpa():
+        return F.scaled_dot_product_attention(q4, kl, vl, attn_mask=mask,
+                                              enable_gqa=True)
+
+    lib = sdpa()[:, :, 0]
+    live = n > 0
+    lib_err = float((lib[live].float() - want[live].float()).abs().max())
+    if not torch.allclose(lib[live].float(), want[live].float(), rtol=tol, atol=tol):
+        raise AssertionError(f"decode_attention ({what}): SDPA is {lib_err:.3g} "
+                             f"off the plain version")
+    if tight:
+        tight["sdpa_limit_ratio"] = float(
+            ((lib[live].float() - exact[live]).abs() / limit[live]).max())
+    itemsize = q.element_size()
+    rows = [min(x, s) if x > 0 else s for x in lengths]
+    kv_rows = sum(r if x > 0 else 0 for r, x in zip(rows, lengths))
+    # each valid k and v row read once (only v where lengths <= 0: the
+    # uniform mean), q read and the output written once, and the lengths
+    nbytes = (kv_rows + sum(rows)) * kvh * d * itemsize + 2 * q.numel() * itemsize + 4 * b
+    ops_ = 4 * d * (h // kvh) * kvh * sum(rows)   # q.k and p.v, 2 flops each
+    return {
+        "name": "decode_attention",
+        "shape": f"q ({b},{h},{d}) {dtype}, cache ({b},{s},{kvh},{d}), "
+                 f"lengths {list(lengths) if b <= 8 else '...'} ({what})",
+        "max_abs_err": err, "tolerance": f"{tol} (rtol and atol)",
+        **tight, "sdpa_max_abs_err": lib_err,
+        "ms": cuda_ms(lambda: ops.decode_attention(q, k, v, n)),
+        "plain_ms": cuda_ms(lambda: ref.decode_attention_ref(q, k, v, n)),
+        "library_ms": cuda_ms(sdpa),
+        "library": "torch.nn.functional.scaled_dot_product_attention(bool "
+                   "mask, enable_gqa=True) on k and v laid out (B,KVH,S,D) "
+                   "in advance",
+        **bound(nbytes, ops_),
+    }
+
+
+def check_decode_attention(rng, dev) -> dict:
+    """The row is the server's call (phase 6: batch 8, llama3.2-3b's 24
+    query and 8 KV heads of 128, an 8192-row bf16 cache, ragged lengths in
+    64-576); decode_32k's 32,768-row cache and a float32 group-7 case with
+    length 0 go under ``other_shapes``."""
+    lengths = [int(x) for x in rng.integers(64, 577, 8)]
+    main = _decode_case(8, 24, 8, 128, 8192, lengths, "bfloat16",
+                        "the server's batch", rng, dev)
+    long = _decode_case(4, 24, 8, 128, 32768, [32768, 32769, 1, 20000],
+                        "bfloat16", "decode_32k's cache", rng, dev)
+    f32 = _decode_case(4, 28, 4, 64, 1536, [0, 1, 1000, 1537], "float32",
+                       "float32, group 7, D=64", rng, dev)
+    return {**main, "other_shapes": [long, f32]}
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the TPC-H path
 # ---------------------------------------------------------------------------
@@ -596,6 +752,139 @@ def run_clickbench() -> dict:
             "generate_s": t_gen, "load_s": t_load}
 
 
+# ---------------------------------------------------------------------------
+# phase 6: the LM serving path (llama3.2-3b at full width)
+# ---------------------------------------------------------------------------
+
+
+def _greedy_check(forward, chosen, what: str) -> dict:
+    """Hold the tokens ``chosen`` against the forward logits' argmax
+    wherever the forward's top-2 margin exceeds twice LOGPROB_LIMIT: an
+    error of at most the limit in each log-prob moves a margin by at most
+    twice it, so it cannot flip such a token."""
+    margin = 2 * LOGPROB_LIMIT
+    top2 = forward.topk(2, dim=-1).values
+    sure = (top2[..., 0] - top2[..., 1]) > margin
+    agree = forward.argmax(-1) == chosen
+    if not bool(agree[sure].all()):
+        raise AssertionError(f"{what}: {int((~agree[sure]).sum())} greedy "
+                             f"tokens differ where the forward's margin "
+                             f"exceeds {margin}")
+    return {"positions": int(agree.numel()), "positions_held": int(sure.sum()),
+            "greedy_agree_share": float(agree.float().mean())}
+
+
+def _decode_vs_forward(cfg, seed: int, dev) -> dict:
+    """Teacher-forced decode_step logits against logits_fn(forward(...)) for
+    a model and LM_CHECK tokens drawn from ``seed``."""
+    import torch
+    from repro_torch.models.lm import CausalLM
+    vocab = cfg.vocab
+    model = CausalLM(cfg, device=dev, seed=seed)
+    b, s = LM_CHECK
+    rng = np.random.default_rng(seed)
+    toks = torch.from_numpy(rng.integers(0, vocab, (b, s))).to(dev)
+    with torch.inference_mode():
+        forward = model.logits_fn(model.forward(toks))[..., :vocab]
+        cache = model.init_cache(b, s)
+        steps = []
+        for i in range(s):
+            logits, cache = model.decode_step(cache, toks[:, i:i + 1])
+            steps.append(logits[:, 0, :vocab])
+        decoded = torch.stack(steps, dim=1)
+    err = float((torch.log_softmax(decoded, -1)
+                 - torch.log_softmax(forward, -1)).abs().max())
+    if not err <= LOGPROB_LIMIT:
+        raise AssertionError(f"decode vs forward (seed {seed}): max |delta "
+                             f"log-softmax| {err:.4g} exceeds {LOGPROB_LIMIT}")
+    return {"seed": seed, "max_abs_logprob_err": err,
+            **_greedy_check(forward, decoded.argmax(-1),
+                            f"decode vs forward (seed {seed})")}
+
+
+def run_lm_serve(card: str, dev) -> dict:
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+    from repro_torch.models.lm import CausalLM
+    from repro_torch.serve_lm import (ARCH, BATCH, MAX_CACHE, N_NEW, SEED,
+                                      serve, serve_metrics, workload_prompts)
+
+    cfg = get_config(ARCH)
+    vocab = cfg.vocab
+    checks = []
+    for seed in range(SEED, SEED + LM_CHECK_SEEDS):
+        checks.append(_decode_vs_forward(cfg, seed, dev))
+        emit({"phase": "lm_decode_vs_forward", "prompts": LM_CHECK[0],
+              "tokens": LM_CHECK[1], "limit": LOGPROB_LIMIT,
+              "greedy_margin": 2 * LOGPROB_LIMIT, **checks[-1]})
+        torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    model = CausalLM(cfg, device=dev, seed=SEED)
+    torch.cuda.synchronize()
+    weights = sum(p.numel() * p.element_size() for p in model.parameters())
+    init = {"arch": cfg.name, "layers": len(model.blocks), "d_model": cfg.d_model,
+            "dtype": str(model.dtype), "init_s": time.perf_counter() - t0,
+            "weight_bytes": weights,
+            "params": sum(p.numel() for p in model.parameters())}
+    emit({"phase": "lm_init", **init})
+
+    # serving: the main path, counted from 0
+    prompts = workload_prompts(vocab)
+    torch.cuda.reset_peak_memory_stats(dev)
+    build.reset_launch_counts()
+    result = serve(model, prompts, N_NEW, MAX_CACHE)
+    launches = build.launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    steps = result["prefill_steps"] + N_NEW
+    if launches["decode_attention"] != cfg.n_layers * steps:
+        raise AssertionError(f"decode_attention launched "
+                             f"{launches['decode_attention']} times over "
+                             f"{steps} decode steps of {cfg.n_layers} layers")
+    tokens = np.asarray(result["tokens"])
+    if tokens.shape != (BATCH, N_NEW) or tokens.min() < 0 or tokens.max() >= vocab:
+        raise AssertionError(f"served tokens: shape {tokens.shape}, range "
+                             f"{tokens.min()}..{tokens.max()}")
+    # every generated token against the forward's greedy choice over the
+    # same sequence: the padded prompts (token 0 past a prompt's end, as
+    # serve feeds them) then the generated tokens
+    maxp = result["prefill_steps"]
+    seq = np.zeros((BATCH, maxp + N_NEW - 1), np.int64)
+    for i, p in enumerate(prompts):
+        seq[i, :len(p)] = p
+    seq[:, maxp:] = tokens[:, :-1]
+    with torch.inference_mode():
+        hidden = model.forward(torch.from_numpy(seq).to(dev))
+        forward = model.logits_fn(hidden[:, maxp - 1:])[..., :vocab]
+    served = _greedy_check(forward, torch.from_numpy(tokens).to(dev),
+                           "served tokens")
+    del hidden, forward
+    out = {"card": card, "requests": BATCH,
+           "prompt_lengths": [len(p) for p in prompts], "n_new": N_NEW,
+           "max_cache": MAX_CACHE,
+           "kv_cache_bytes": cfg.n_layers * 2 * BATCH * MAX_CACHE
+           * cfg.n_kv_heads * cfg.resolved_head_dim * 2,
+           **serve_metrics(result),
+           "prefill_s": result["prefill_s"], "decode_s": result["decode_s"],
+           "prefill_steps": maxp, "decode_steps": N_NEW,
+           "decode_attention_launches": launches["decode_attention"],
+           "launches_per_step": launches["decode_attention"] / steps,
+           "peak_memory_bytes": peak,
+           "served_tokens_held": served["positions_held"],
+           "served_greedy_agree_share": served["greedy_agree_share"],
+           "decode_vs_forward": checks, "init": init}
+    emit({"phase": "lm_serve", **{k: v for k, v in out.items()
+                                  if k not in ("decode_vs_forward", "init")}})
+    print(f"lm_serve {cfg.name}: prefill {out['prefill_tokens_per_s']:.1f} "
+          f"tokens/s, decode {out['decode_tokens_per_s']:.1f} tokens/s, median "
+          f"step {out['median_step_ms']:.3f} ms, decode_attention "
+          f"{out['decode_attention_launches']} launches "
+          f"({out['launches_per_step']:.0f} per step), peak memory "
+          f"{peak} bytes on {card}", flush=True)
+    return {**out, "launches": launches}
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke.py: src/repro_torch not found beside the script",
@@ -629,15 +918,17 @@ def main() -> int:
     rng = np.random.default_rng(SEED)
     kernels = []
     for check in (check_filter, check_groupby, check_probe, check_expand,
-                  check_topk):
+                  check_topk, check_decode_attention):
         row = check(rng, dev)
         emit({"phase": "kernel", **row})
         kernels.append(row)
 
     report["main_path"] = run_main_path()
     report["clickbench"] = run_clickbench()
+    report["lm_serve"] = run_lm_serve(card, dev)
     by_path = {"tpch": report["main_path"]["launches"],
-               "clickbench": report["clickbench"]["launches"]}
+               "clickbench": report["clickbench"]["launches"],
+               "lm_serve": report["lm_serve"]["launches"]}
     line = []
     for row in kernels:
         name = row["name"]
@@ -662,6 +953,7 @@ def main() -> int:
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1,
                                                         default=str))
+    print(card, flush=True)
     emit({"kernels": line})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

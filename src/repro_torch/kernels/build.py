@@ -22,7 +22,7 @@ from typing import Optional
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("filter_count.cu", "groupby_agg.cu", "hash_probe.cu",
-           "join_expand.cu", "topk.cu", "errors.cu")
+           "join_expand.cu", "topk.cu", "decode_attention.cu", "errors.cu")
 ARCH = "arch=compute_90a,code=sm_90a"
 NVCC_FLAGS = ("-gencode", ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
@@ -35,6 +35,8 @@ SIGNATURES = {
     "repro_hash_probe": (_P, _P, _P, _P, _P, _I64, _I32, _I32, _P),
     "repro_join_expand": (_P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _P),
     "repro_topk_select": (_P, _I64, _I32, _P, _P, _P),
+    "repro_decode_attention": (_P, _P, _P, _P, _P, _I32, _I32, _I32, _I32,
+                               _I32, _I32, _P),
 }
 
 _lock = threading.Lock()
@@ -139,7 +141,7 @@ def check(err: int, name: str) -> None:
 # ---------------------------------------------------------------------------
 
 KERNELS = ("filter_mask_counts", "groupby_sum", "hash_probe", "join_expand",
-           "topk_select")
+           "topk_select", "decode_attention")
 _counts_lock = threading.Lock()
 _launches = {k: 0 for k in KERNELS}
 

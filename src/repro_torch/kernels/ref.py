@@ -1,7 +1,8 @@
-"""Plain PyTorch versions of the five CUDA kernels (the correctness contracts).
+"""Plain PyTorch versions of the six CUDA kernels (the correctness contracts).
 
 The wrappers use them for CPU tensors; ``chip_smoke.py`` holds each kernel
-against them on the card.  The first three port ``repro/kernels/ref.py``;
+against them on the card.  ``filter_mask_counts_ref``, ``groupby_sum_ref``,
+``hash_probe_ref`` and ``decode_attention_ref`` port ``repro/kernels/ref.py``;
 ``join_expand_ref`` ports ``repro/relational/join.py::_join_expand``;
 ``topk_select_ref`` states the semantics of ``repro/kernels/topk.py``,
 which has no plain version in the reference.
@@ -115,3 +116,27 @@ def topk_select_ref(keys: torch.Tensor, k: int) -> torch.Tensor:
     keys = keys.to(torch.float32)
     keys = torch.where(keys == 0, torch.zeros_like(keys), keys)
     return torch.sort(keys, stable=True).indices[:k].to(torch.int32)
+
+
+def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         lengths: torch.Tensor) -> torch.Tensor:
+    """Masked GQA decode attention: q (B,H,D), k/v (B,S,KVH,D) → (B,H,D).
+
+    Scores in float32; position ``s`` of row ``b`` is masked (-1e30) when
+    ``s >= lengths[b]``, and the softmax runs over the S cache rows only.
+    So ``lengths[b] >= S`` attends all S rows and ``lengths[b] <= 0`` gives
+    the uniform mean of v over all S rows (the reference's semantics; the
+    Pallas kernel, which pads S to 512-row blocks, differs at both edges).
+    The output has q's dtype."""
+    b, h, d = q.shape
+    _, s, kvh, _ = k.shape
+    g = h // kvh
+    qg = q.reshape(b, kvh, g, d).to(torch.float32)
+    kf = k.to(torch.float32)
+    vf = v.to(torch.float32)
+    scores = torch.einsum("bkgd,bskd->bkgs", qg, kf) / (d ** 0.5)
+    pos = torch.arange(s, device=q.device)[None, None, None, :]
+    scores = torch.where(pos < lengths[:, None, None, None], scores, -1e30)
+    p = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgs,bskd->bkgd", p, vf)
+    return out.reshape(b, h, d).to(q.dtype)

@@ -5,8 +5,11 @@ Loads TPC-H (default SF1) into ``repro_torch``'s ``SiriusEngine`` with the
 kernel backend on the card, warms each of Q1, Q6, Q3, Q5 once, then runs
 each once under ``torch.profiler`` (CPU and CUDA activity); with
 ``--clickbench`` it does the same for the 15 ClickBench queries through
-``SiriusEngine.sql`` on a hits sample of 2,000,000 rows.  It prints,
-per query, one JSON line with:
+``SiriusEngine.sql`` on a hits sample of 2,000,000 rows, and with ``--lm``
+for decode steps of the LM server (``serve_lm``'s workload: ``llama3.2-3b``
+at full width, its batch and cache, the cache filled to ``LM_FILL`` rows;
+each step ends in a synchronisation as ``serve``'s steps do).  It prints, per query (or
+step), one JSON line with:
 
 * ``wall_ms`` — host wall clock of the profiled run (profiling adds host
   overhead, so this is above the unprofiled warm time of ``chip_smoke.py``);
@@ -20,7 +23,7 @@ per query, one JSON line with:
 
 Run on a machine with a card, from the root of a checkout:
 ``PYTHONPATH=src python3 -m repro_torch.profile_tpch [--sf 1.0] [--out FILE]``
-or ``... -m repro_torch.profile_tpch --clickbench``.
+or ``... -m repro_torch.profile_tpch --clickbench`` or ``... --lm``.
 """
 from __future__ import annotations
 
@@ -33,6 +36,8 @@ from pathlib import Path
 
 ORDER = (1, 6, 3, 5)
 CB_ROWS = 2_000_000      # the hits sample chip_smoke.py drives
+LM_FILL = 300            # cache rows filled before the profiled decode steps
+                         # (within serve_lm's prompt lengths, 64-512)
 WAITS = ("aten::item", "cudaDeviceSynchronize")
 
 
@@ -78,11 +83,40 @@ def profile_query(run, top: int) -> dict:
             "top_device": head(device), "top_host": head(host)}
 
 
+def _lm_runs():
+    """Three decode steps of the server's model at its batch and cache,
+    after LM_FILL teacher-forced steps of random tokens."""
+    import numpy as np
+    import torch
+    from .configs import get_config
+    from .models.lm import CausalLM
+    from .serve_lm import ARCH, BATCH, MAX_CACHE, SEED
+    cfg = get_config(ARCH)
+    model = CausalLM(cfg, seed=SEED)
+    cache = model.init_cache(BATCH, MAX_CACHE)
+    rng = np.random.default_rng(SEED)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (BATCH, LM_FILL + 3))).to(
+        model.device)
+
+    def step(i):
+        with torch.inference_mode():
+            model.decode_step(cache, toks[:, i:i + 1])
+        torch.cuda.synchronize()
+
+    for i in range(LM_FILL):
+        step(i)
+    return ({"arch": cfg.name, "batch": BATCH, "max_cache": MAX_CACHE},
+            {f"decode_step_{j}": (lambda i=LM_FILL + j: step(i))
+             for j in range(3)})
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--sf", type=float, default=1.0)
     ap.add_argument("--clickbench", action="store_true",
                     help="profile the ClickBench queries instead of TPC-H")
+    ap.add_argument("--lm", action="store_true",
+                    help="profile decode steps of the LM server instead")
     ap.add_argument("--top", type=int, default=8)
     ap.add_argument("--out", default=None, help="also write the lines here")
     args = ap.parse_args()
@@ -92,8 +126,10 @@ def main() -> int:
         return 2
     from .core.executor import SiriusEngine
 
-    eng = SiriusEngine(use_kernels=True)
-    if args.clickbench:
+    if args.lm:
+        scale, runs = _lm_runs()
+    elif args.clickbench:
+        eng = SiriusEngine(use_kernels=True)
         from .data import clickbench as cb
         cb.load_into_engine(eng, cb.generate(CB_ROWS))
         cat = cb.clickbench_catalog(CB_ROWS)
@@ -101,6 +137,7 @@ def main() -> int:
         runs = {qid: (lambda sql=sql: eng.sql(sql, catalog=cat))
                 for qid, sql in cb.CLICKBENCH_QUERIES.items()}
     else:
+        eng = SiriusEngine(use_kernels=True)
         from .data.tpch import generate, load_into_engine
         from .data.tpch_queries import QUERIES
         load_into_engine(eng, generate(args.sf))

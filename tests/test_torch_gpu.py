@@ -212,3 +212,97 @@ def test_clickbench_kernel_path_matches_generic_on_card(clickbench_engines, qid)
         with instrument.track_transfers() as counter:
             fast.sql(sql, catalog=cat)
         assert counter.in_pipeline == 0
+
+
+# decode attention: (B, H, KVH, D, S); lengths below
+DECODE_SHAPES = [(2, h, kvh, 64, s) for h, kvh in ((8, 8), (8, 4), (32, 8), (16, 1))
+                 for s in (64, 700, 1536)] + [
+    (4, 24, 8, 128, 1000),      # llama3.2-3b's heads, group 3
+    (4, 28, 4, 128, 1000),      # qwen2-7b's heads, group 7
+    (4, 28, 4, 64, 517),        # group 7, D = 64
+    (3, 4, 2, 16, 40),          # the reduced configs' head_dim
+    (2, 6, 2, 96, 300),         # D not a power of two
+]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,h,kvh,d,s", DECODE_SHAPES)
+def test_decode_attention_on_card(dev, b, h, kvh, d, s, dtype):
+    """Against the plain version: 2e-5 in float32, 3e-2 in bfloat16 (the
+    reference's tolerances), at lengths 0, 1, S, S+1 and ragged ones.  In
+    bfloat16 also element by element against the plain version on the
+    inputs cast to float32, unrounded: within half a bf16 ulp (2^-8 of the
+    value) plus 1e-5, since the kernel rounds a float32 result once."""
+    rng = np.random.default_rng(b * h * d + s)
+    tdt = getattr(torch, dtype)
+    q = torch.from_numpy(rng.normal(size=(b, h, d)).astype(np.float32)).to(dev, tdt)
+    k = torch.from_numpy(rng.normal(size=(b, s, kvh, d)).astype(np.float32)).to(dev, tdt)
+    v = torch.from_numpy(rng.normal(size=(b, s, kvh, d)).astype(np.float32)).to(dev, tdt)
+    edges = [0, 1, s, s + 1] if b >= 4 else [s, max(s // 3, 1), 0][:b]
+    lengths = torch.tensor(edges + list(rng.integers(1, s + 1, b - len(edges))),
+                           dtype=torch.int32, device=dev)
+    build.reset_launch_counts()
+    got = ops.decode_attention(q, k, v, lengths)
+    assert build.launch_counts()["decode_attention"] == 1
+    assert got.dtype == tdt and got.shape == q.shape
+    want = ref.decode_attention_ref(q, k, v, lengths)
+    tol = 2e-5 if dtype == "float32" else 3e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    if dtype == "bfloat16":
+        exact = ref.decode_attention_ref(q.float(), k.float(), v.float(), lengths)
+        assert ((got.float() - exact).abs() <= 2.0 ** -8 * exact.abs() + 1e-5).all()
+
+
+def test_decode_attention_ignores_the_tail_on_card(dev):
+    rng = np.random.default_rng(5)
+    q = torch.from_numpy(rng.normal(size=(2, 24, 128)).astype(np.float32)).to(dev)
+    k = torch.from_numpy(rng.normal(size=(2, 400, 8, 128)).astype(np.float32)).to(dev)
+    v = torch.from_numpy(rng.normal(size=(2, 400, 8, 128)).astype(np.float32)).to(dev)
+    lengths = torch.tensor([100, 257], dtype=torch.int32, device=dev)
+    out1 = ops.decode_attention(q, k, v, lengths)
+    k[0, 100:], v[0, 100:] = 99.0, -99.0
+    k[1, 257:], v[1, 257:] = 99.0, -99.0
+    out2 = ops.decode_attention(q, k, v, lengths)
+    assert torch.equal(out1, out2)
+
+
+def test_decode_attention_rejects_what_it_does_not_take(dev):
+    q = torch.zeros((1, 4, 32), device=dev)
+    kv = torch.zeros((1, 10, 2, 32), device=dev)
+    n = torch.ones(1, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):             # float16
+        ops.decode_attention(q.half(), kv.half(), kv.half(), n)
+    with pytest.raises(ValueError):             # int64 lengths
+        ops.decode_attention(q, kv, kv, n.long())
+    with pytest.raises(ValueError):             # D = 20
+        ops.decode_attention(q[..., :20].contiguous(), kv[..., :20].contiguous(),
+                             kv[..., :20].contiguous(), n)
+    with pytest.raises(ValueError):             # H not a multiple of KVH
+        ops.decode_attention(torch.zeros((1, 3, 32), device=dev), kv, kv, n)
+
+
+def test_reduced_decode_step_on_card_matches_the_cpu(dev):
+    """One reduced llama3.2-3b, the same weights on both devices: logits and
+    caches within 2e-4 over steps that fill the cache past its end, and one
+    decode_attention launch per layer and step; serve gives the same greedy
+    tokens."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models.lm import CausalLM
+    from repro_torch.serve_lm import serve
+    cfg = reduced(get_config("llama3.2-3b"))
+    cpu = CausalLM(cfg, device="cpu", seed=3)
+    card = CausalLM(cfg, device=dev, seed=3)
+    card.load_state_dict(cpu.state_dict())
+    toks = torch.from_numpy(np.random.default_rng(3).integers(0, cfg.vocab, (3, 12)))
+    c_cpu, c_card = cpu.init_cache(3, 8), card.init_cache(3, 8)
+    build.reset_launch_counts()
+    for i in range(12):
+        lg_cpu, c_cpu = cpu.decode_step(c_cpu, toks[:, i:i + 1])
+        lg_card, c_card = card.decode_step(c_card, toks[:, i:i + 1].to(dev))
+        torch.testing.assert_close(lg_card.cpu(), lg_cpu, rtol=2e-4, atol=2e-4)
+    assert build.launch_counts()["decode_attention"] == 12 * cfg.n_layers
+    for a, b in zip(c_card["layers"], c_cpu["layers"]):
+        torch.testing.assert_close(a["k"].cpu(), b["k"], rtol=2e-4, atol=2e-4)
+        torch.testing.assert_close(a["v"].cpu(), b["v"], rtol=2e-4, atol=2e-4)
+    prompts = [list(range(1, n + 1)) for n in (5, 9, 3, 7)]
+    assert serve(card, prompts, 6, 32)["tokens"] == serve(cpu, prompts, 6, 32)["tokens"]

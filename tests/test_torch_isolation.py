@@ -27,7 +27,10 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
         "import sys, repro_torch, repro_torch.core.executor, "
         "repro_torch.core.kernel_backend, repro_torch.data.tpch_queries, "
         "repro_torch.kernels.ops, repro_torch.sql, repro_torch.optimizer, "
-        "repro_torch.data.clickbench\n"
+        "repro_torch.data.clickbench, repro_torch.configs, "
+        "repro_torch.kernels.decode_attention, repro_torch.models.layers, "
+        "repro_torch.models.lm, repro_torch.models.convert, "
+        "repro_torch.serve_lm\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
         "print(','.join(bad))\n")

@@ -18,16 +18,19 @@ nothing of JAX or of the JAX package ``repro``, and:
    call, ``join_expand`` at both of Q5's calls, ``topk_select`` at a
    main-path shape and at a 2^20-key shape with heavy ties, and
    ``decode_attention`` at the server's shape (batch 8, llama3.2-3b's
-   heads, an 8192-row bf16 cache), at 32,768 rows and in float32 with
-   group 7: 2e-5 in float32 and 3e-2 in bf16 (the reference's tolerances)
-   against the plain version, and in bf16 also element by element against
-   the plain version on the inputs cast to float32, unrounded, within half
-   a bf16 ulp of that value plus 1e-5 (``decode_limit_ratio``).  Two
+   heads, an 8192-row bf16 cache), at 32,768 rows (batch 4, and batch 1)
+   and in float32 with group 7: 2e-5 in float32 and 3e-2 in bf16 (the
+   reference's tolerances) against the plain version, and in bf16 also
+   element by element against the plain version on the inputs cast to
+   float32, unrounded, within half a bf16 ulp of that value plus 1e-5
+   (``decode_limit_ratio``).  Two
    deliberately wrong versions are read against the same limit (scores
    rounded to bf16; each row's last valid position dropped), and the
    second must fail it.  Each kernel, its plain version
    and (for the group-by, the top-k and the decode attention) one library
-   call are timed with CUDA events;
+   call are timed with CUDA events; the kernel's own grids also with
+   torch.profiler over the same loop (``device_ms``) and the wrapper's host
+   time with the host clock (``host_ms``);
 4. drives the TPC-H path: SF1 data, ``SiriusEngine(use_kernels=True)`` on
    the card, Q1, Q6, Q3 and Q5 from fresh plans (a cold run and the median
    of three warm runs each).  It holds the per-query kernel hits equal to
@@ -118,6 +121,15 @@ REPLACES = {
     "topk_select": "src/repro/kernels/topk.py:60",
     "decode_attention": "src/repro/kernels/decode_attention.py:68",
 }
+# the names of each kernel's grids, as torch.profiler reports them
+DEVICE_NAMES = {
+    "filter_mask_counts": ("filter_mask_counts_kernel",),
+    "groupby_sum": ("groupby_partial_kernel", "groupby_merge_kernel"),
+    "hash_probe": ("hash_probe_kernel",),
+    "join_expand": ("join_expand_kernel",),
+    "topk_select": ("topk_tile_kernel",),
+    "decode_attention": ("decode_attention_kernel",),
+}
 SOURCES = {
     "filter_mask_counts": "src/repro_torch/csrc/filter_count.cu",
     "groupby_sum": "src/repro_torch/csrc/groupby_agg.cu",
@@ -180,6 +192,54 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(name: str, fn, iters: int = 20, warmup: int = 3) -> tuple:
+    """The device time of kernel ``name``'s own grids per call of ``fn()``,
+    in ms, and its grids per call: torch.profiler over the loop that
+    ``cuda_ms`` times (the grids are those whose names DEVICE_NAMES lists)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total, grids = 0.0, 0
+    for e in prof.events():
+        if (e.device_type == torch.autograd.DeviceType.CUDA
+                and any(k in e.name for k in DEVICE_NAMES[name])):
+            total += e.time_range.elapsed_us()
+            grids += 1
+    if grids == 0:
+        raise AssertionError(f"{name}: the profiler saw none of its grids")
+    return total / iters / 1e3, grids / iters
+
+
+def host_ms(fn, iters: int = 200, warmup: int = 3) -> float:
+    """Host time of one call of ``fn()`` in ms: the host clock around
+    ``iters`` calls that are not waited for (the device lags behind)."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / iters * 1e3
+
+
+def kernel_times(name: str, fn) -> dict:
+    """One wrapper call's ``ms`` (CUDA events around 20 calls: the host's
+    checks, allocation and launch, or the device, whichever is slower),
+    ``device_ms`` (the kernel's own grids alone) and ``host_ms``."""
+    dev_ms, grids = device_ms(name, fn)
+    return {"ms": cuda_ms(fn), "device_ms": dev_ms, "host_ms": host_ms(fn),
+            "grids_per_call": grids}
+
+
 def bound(nbytes: float, ops: float) -> dict:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / SCALAR_OPS_PER_S * 1e3
@@ -218,7 +278,8 @@ def check_filter(rng, dev) -> dict:
     return {
         "name": "filter_mask_counts", "shape": f"N={n}, C={c} (Q6)",
         "max_abs_err": 0.0, "tolerance": "exact",
-        "ms": cuda_ms(lambda: ops.filter_mask_counts(x, lo_t, hi_t)),
+        **kernel_times("filter_mask_counts",
+                       lambda: ops.filter_mask_counts(x, lo_t, hi_t)),
         "plain_ms": cuda_ms(lambda: ref.filter_mask_counts_ref(x, lo_t, hi_t)),
         "library_ms": None,
         **bound(n * c * 4 + 2 * c * 4 + n + counts.numel() * 4, 2 * n * c),
@@ -257,7 +318,7 @@ def _groupby_case(gids: np.ndarray, vals: np.ndarray, g: int, what: str,
         "max_err_over_sum_abs": float(rel),
         "tolerance": "column 0 (counts) exact; the others 2e-7 x sum|v| per "
                      "(group, column)",
-        "ms": cuda_ms(lambda: ops.groupby_sum(gi, va, g)),
+        **kernel_times("groupby_sum", lambda: ops.groupby_sum(gi, va, g)),
         "plain_ms": cuda_ms(lambda: ref.groupby_sum_ref(gi, va, g)),
         "library_ms": cuda_ms(lambda: torch.zeros(
             (g, v), dtype=torch.float32, device=dev).index_add_(0, gl, va)),
@@ -348,7 +409,7 @@ def check_probe(rng, dev) -> dict:
         "shape": f"N={n_probe} keys, build {n_build} rows, capacity {cap} (Q3)",
         "max_abs_err": 0.0, "tolerance": "exact",
         "mean_probe_rounds": rounds,
-        "ms": cuda_ms(lambda: ops.hash_probe(p32, sk, sr)),
+        **kernel_times("hash_probe", lambda: ops.hash_probe(p32, sk, sr)),
         "plain_ms": cuda_ms(lambda: ref.hash_probe_ref(p32, sk, sr), iters=5),
         "library_ms": None,
         **bound(n_probe * 4 + cap * 8 + n_probe * 5,
@@ -377,7 +438,8 @@ def _expand_case(pk: np.ndarray, bk: np.ndarray, what: str, dev) -> dict:
         "shape": f"{n} runs, {bk.shape[0]} build rows, {total} outputs "
                  f"in a {t_pad} bucket ({what})",
         "max_abs_err": 0.0, "tolerance": "exact on the first total outputs",
-        "ms": cuda_ms(lambda: ops.join_expand(order, lo, counts, counts, t_pad)),
+        **kernel_times("join_expand",
+                       lambda: ops.join_expand(order, lo, counts, counts, t_pad)),
         "plain_ms": cuda_ms(lambda: ref.join_expand_ref(order, lo, counts,
                                                          counts, t_pad)),
         "library_ms": None,
@@ -421,7 +483,7 @@ def _topk_case(keys_np: np.ndarray, k: int, what: str, dev) -> dict:
     return {
         "name": "topk_select", "shape": f"N={n}, k={k} ({what})",
         "max_abs_err": 0.0, "tolerance": "exact (indices)",
-        "ms": cuda_ms(lambda: ops.topk_select(keys, k)),
+        **kernel_times("topk_select", lambda: ops.topk_select(keys, k)),
         "plain_ms": cuda_ms(lambda: ref.topk_select_ref(keys, k)),
         # its tie order is unspecified: timed, not held
         "library_ms": cuda_ms(lambda: torch.topk(keys, k, largest=False)),
@@ -531,7 +593,8 @@ def _decode_case(b: int, h: int, kvh: int, d: int, s: int, lengths,
                  f"lengths {list(lengths) if b <= 8 else '...'} ({what})",
         "max_abs_err": err, "tolerance": f"{tol} (rtol and atol)",
         **tight, "sdpa_max_abs_err": lib_err,
-        "ms": cuda_ms(lambda: ops.decode_attention(q, k, v, n)),
+        **kernel_times("decode_attention",
+                       lambda: ops.decode_attention(q, k, v, n)),
         "plain_ms": cuda_ms(lambda: ref.decode_attention_ref(q, k, v, n)),
         "library_ms": cuda_ms(sdpa),
         "library": "torch.nn.functional.scaled_dot_product_attention(bool "
@@ -544,8 +607,9 @@ def _decode_case(b: int, h: int, kvh: int, d: int, s: int, lengths,
 def check_decode_attention(rng, dev) -> dict:
     """The row is the server's call (phase 6: batch 8, llama3.2-3b's 24
     query and 8 KV heads of 128, an 8192-row bf16 cache, ragged lengths in
-    64-576); decode_32k's 32,768-row cache and a float32 group-7 case with
-    length 0 go under ``other_shapes``."""
+    64-576); decode_32k's 32,768-row cache, a float32 group-7 case with
+    length 0 and batch 1 over a full 32,768-row cache (the fewest (row, KV
+    head) units, so the most splits) go under ``other_shapes``."""
     lengths = [int(x) for x in rng.integers(64, 577, 8)]
     main = _decode_case(8, 24, 8, 128, 8192, lengths, "bfloat16",
                         "the server's batch", rng, dev)
@@ -553,7 +617,9 @@ def check_decode_attention(rng, dev) -> dict:
                         "bfloat16", "decode_32k's cache", rng, dev)
     f32 = _decode_case(4, 28, 4, 64, 1536, [0, 1, 1000, 1537], "float32",
                        "float32, group 7, D=64", rng, dev)
-    return {**main, "other_shapes": [long, f32]}
+    one = _decode_case(1, 24, 8, 128, 32768, [32768], "bfloat16",
+                       "batch 1, a full 32,768-row cache", rng, dev)
+    return {**main, "other_shapes": [long, f32, one]}
 
 
 # ---------------------------------------------------------------------------
@@ -938,6 +1004,7 @@ def main() -> int:
             "launches": sum(p[name] for p in by_path.values()),
             "launches_by_path": {p: c[name] for p, c in by_path.items()},
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+            "device_ms": row["device_ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
             "shape": row["shape"],

@@ -1,0 +1,159 @@
+#!/usr/bin/env python3
+"""Time the top-k and decode-attention wrappers of two checkouts in turns
+on one card, and where one wrapper call's host time goes.
+
+    PYTHONPATH=src python3 -m repro_torch.kernel_turns OTHER_ROOT [--out FILE]
+
+runs ``chip_smoke.py``'s ``check_topk`` and ``check_decode_attention`` (this
+checkout's script: the same inputs from its seed, each kernel held against
+its own checkout's plain version, the same timers: ``ms``, ``device_ms``,
+``host_ms``, ``plain_ms``, ``library_ms``) four times, each in a process of
+its own that imports ``repro_torch`` from one checkout, in the order
+OTHER, this, this, OTHER; each process builds its checkout's kernels.
+Then it times, in this checkout, the host path of one wrapper call piece
+by piece: the whole call, the entry point alone (the ctypes call and the
+launch), each check and allocation, and the helpers a wrapper used before
+(a set of device types, a ``torch.cuda.Stream`` object, a
+``torch.cuda.device`` context, an empty scratch tensor).  ``--pieces``
+alone runs only that.  Every line is one JSON object with the card's
+``nvidia-smi`` name and power limit.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[2]
+
+CHILD = """
+import json, sys
+import numpy as np, torch
+sys.path.insert(0, {root!r})
+import chip_smoke
+dev = torch.device("cuda", 0)
+for check in (chip_smoke.check_topk, chip_smoke.check_decode_attention):
+    print(json.dumps(check(np.random.default_rng(chip_smoke.SEED), dev)),
+          flush=True)
+"""
+
+
+def turns(other: Path, card: str) -> list:
+    """check_topk and check_decode_attention of OTHER, this, this, OTHER."""
+    lines = []
+    for turn, root in enumerate((other, ROOT, ROOT, other)):
+        env = dict(os.environ, PYTHONPATH=str(root / "src"))
+        env.pop("REPRO_TORCH_BUILD_DIR", None)   # each checkout builds its own
+        out = subprocess.run([sys.executable, "-c", CHILD.format(root=str(ROOT))],
+                             env=env, capture_output=True, text=True)
+        if out.returncode != 0:
+            raise RuntimeError(f"turn {turn} ({root}) failed:\n{out.stderr[-4000:]}")
+        for text in out.stdout.splitlines():
+            row = json.loads(text)
+            lines.append({"turn": turn, "checkout": str(root), "card": card,
+                          **row})
+    return lines
+
+
+def pieces(card: str) -> list:
+    """Host ms of one call of each piece of the two wrappers' host paths, at
+    ClickBench's top-k call (433 keys, k=10) and the server's decode call."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+    from .kernels import build, ops
+    from .kernels.decode_attention import _workspace, split_count
+
+    dev = torch.device("cuda", 0)
+    index = 0
+    rng = np.random.default_rng(chip_smoke.SEED)
+    keys = torch.from_numpy(rng.permutation(433).astype(np.float32)).to(dev)
+    idx_out = torch.empty(10, dtype=torch.int32, device=dev)
+    q = torch.from_numpy(rng.standard_normal((8, 24, 128), np.float32)).to(
+        dev, torch.bfloat16)
+    kv = torch.from_numpy(rng.standard_normal((8, 8192, 8, 128), np.float32)).to(
+        dev, torch.bfloat16)
+    n = torch.from_numpy(rng.integers(64, 577, 8).astype(np.int32)).to(dev)
+    out = torch.empty_like(q)
+    q4 = q[:, :, None]
+    kl = kv.transpose(1, 2).contiguous()
+    mask = (torch.arange(8192, device=dev)[None, :] < n[:, None])[:, None, None, :]
+    build.lib()
+    stream = build.current_stream(index)
+    n_split = split_count(8, 8, 3, 8192, build.sm_count(index))
+    tickets, part = _workspace(index, stream, 8 * 24, 8 * 24 * n_split * 130, dev)
+    topk_entry = build._entries["topk_select"]
+    decode_entry = build._entries["decode_attention"]
+
+    def device_context():
+        with torch.cuda.device(dev):
+            pass
+
+    cases = {
+        "topk_select: the wrapper": lambda: ops.topk_select(keys, 10),
+        "topk_select: torch.topk": lambda: torch.topk(keys, 10, largest=False),
+        "topk_select: the entry point alone": lambda: topk_entry(
+            keys.data_ptr(), 433, 10, 512, None, idx_out.data_ptr(), stream),
+        "decode_attention: the wrapper": lambda: ops.decode_attention(q, kv, kv, n),
+        "decode_attention: SDPA": lambda: F.scaled_dot_product_attention(
+            q4, kl, kl, attn_mask=mask, enable_gqa=True),
+        "decode_attention: the entry point alone": lambda: decode_entry(
+            q.data_ptr(), kv.data_ptr(), kv.data_ptr(), n.data_ptr(),
+            out.data_ptr(), part.data_ptr(), tickets.data_ptr(), 8, 8192, 24,
+            8, 128, n_split, 1, stream),
+        "decode_attention: split_count and sm_count": lambda: split_count(
+            8, 8, 3, 8192, build.sm_count(index)),
+        "decode_attention: the workspace lookup": lambda: _workspace(
+            index, stream, 8 * 24, 8 * 24 * n_split * 130, dev),
+        "build.on_cpu": lambda: build.on_cpu(keys),
+        "a set of device types": lambda: {t.device.type for t in (keys,)},
+        "build.require": lambda: build.require(keys, "keys", torch.float32, 1),
+        "torch.empty(10)": lambda: torch.empty(10, dtype=torch.int32, device=dev),
+        "torch.empty(0)": lambda: torch.empty(0, dtype=torch.int64, device=dev),
+        "torch.empty_like(q)": lambda: torch.empty_like(q),
+        "build.current_stream": lambda: build.current_stream(index),
+        "torch.cuda.current_stream(dev).cuda_stream": lambda: (
+            torch.cuda.current_stream(dev).cuda_stream),
+        "torch.cuda.current_device()": torch.cuda.current_device,
+        "a torch.cuda.device context": device_context,
+        "build.count_launch": lambda: build.count_launch("topk_select"),
+    }
+    lines = [{"piece": name, "host_ms": chip_smoke.host_ms(fn, iters=2000),
+              "card": card} for name, fn in cases.items()]
+    build.reset_launch_counts()
+    return lines
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("other", nargs="?", help="root of the other checkout")
+    ap.add_argument("--pieces", action="store_true",
+                    help="only the host path's pieces, in this checkout")
+    ap.add_argument("--out", default=None, help="also write the lines here")
+    args = ap.parse_args()
+    import torch
+    if not torch.cuda.is_available():
+        print("kernel_turns: no CUDA device", file=sys.stderr)
+        return 2
+    if not args.pieces and not args.other:
+        ap.error("give the other checkout's root, or --pieces")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True).stdout.strip().splitlines()[0]
+    lines = [] if args.pieces else turns(Path(args.other).resolve(), card)
+    lines += pieces(card)
+    for row in lines:
+        print(json.dumps(row), flush=True)
+    if args.out:
+        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+        Path(args.out).write_text("\n".join(json.dumps(r) for r in lines) + "\n")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

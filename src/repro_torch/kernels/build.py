@@ -20,6 +20,8 @@ import time
 from pathlib import Path
 from typing import Optional
 
+import torch
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("filter_count.cu", "groupby_agg.cu", "hash_probe.cu",
            "join_expand.cu", "topk.cu", "decode_attention.cu", "errors.cu")
@@ -34,13 +36,14 @@ SIGNATURES = {
     "repro_groupby_sum": (_P, _P, _P, _P, _I64, _I32, _I32, _I32, _I32, _I32, _P),
     "repro_hash_probe": (_P, _P, _P, _P, _P, _I64, _I32, _I32, _P),
     "repro_join_expand": (_P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _P),
-    "repro_topk_select": (_P, _I64, _I32, _P, _P, _P),
-    "repro_decode_attention": (_P, _P, _P, _P, _P, _I32, _I32, _I32, _I32,
-                               _I32, _I32, _P),
+    "repro_topk_select": (_P, _I64, _I32, _I32, _P, _P, _P),
+    "repro_decode_attention": (_P, _P, _P, _P, _P, _P, _P, _I32, _I32, _I32,
+                               _I32, _I32, _I32, _I32, _P),
 }
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
+_entries: dict = {}   # kernel name -> its bound entry point, once loaded
 # what the last build printed (ptxas register / shared-memory report) and
 # how long it took; None when the library came from an earlier build
 build_log: Optional[str] = None
@@ -120,22 +123,35 @@ def lib() -> ctypes.CDLL:
                 fn = getattr(dll, name)
                 fn.argtypes = list(argtypes)
                 fn.restype = ctypes.c_int
+                _entries[name[len("repro_"):]] = fn
             dll.repro_cuda_error_string.argtypes = [ctypes.c_int]
             dll.repro_cuda_error_string.restype = ctypes.c_char_p
             _lib = dll
         return _lib
 
 
-def check(err: int, name: str) -> None:
-    """Raise if a kernel entry point returned a CUDA error."""
+def launch(name: str, index: int, stream: int, *args) -> None:
+    """Call the entry point ``repro_<name>(*args, stream)`` with CUDA device
+    ``index`` current (entered only when it is not already), raise if it
+    returns a CUDA error, and count the launch."""
+    fn = _entries.get(name)
+    if fn is None:
+        lib()
+        fn = _entries[name]
+    if torch.cuda.current_device() == index:
+        err = fn(*args, stream)
+    else:
+        with torch.cuda.device(index):
+            err = fn(*args, stream)
     if err != 0:
         msg = lib().repro_cuda_error_string(err).decode()
         raise RuntimeError(f"{name}: CUDA error {err} ({msg})")
+    count_launch(name)
 
 
 # ---------------------------------------------------------------------------
-# launch counts: each wrapper adds one where it launches its kernel, so a
-# count is of wrapper calls that reached the card.  A call may run more than
+# launch counts: ``launch`` adds one where a wrapper launches its kernel, so
+# a count is of wrapper calls that reached the card.  A call may run more than
 # one grid: groupby_sum's partial and merge passes, and topk_select's rounds
 # (one while n <= 1024 keys, as on the ClickBench path, more above that).
 # ---------------------------------------------------------------------------
@@ -170,11 +186,12 @@ def reset_launch_counts() -> None:
 def on_cpu(*tensors) -> bool:
     """True when every tensor lies on the CPU (the plain-version case).
 
-    A CUDA tensor makes it False; any other device, or a mix, raises."""
-    types = {t.device.type for t in tensors}
-    if types == {"cpu"}:
+    All on one CUDA device makes it False; any other device, or a mix,
+    raises."""
+    if all(t.is_cpu for t in tensors):
         return True
-    if types == {"cuda"} and len({t.device for t in tensors}) == 1:
+    index = tensors[0].get_device()
+    if all(t.is_cuda and t.get_device() == index for t in tensors):
         return False
     raise ValueError(f"kernel inputs must all be on one CUDA device or on "
                      f"the CPU, got {[str(t.device) for t in tensors]}")
@@ -189,7 +206,20 @@ def require(t, name: str, dtype, ndim: int) -> None:
             f"{'' if t.is_contiguous() else ' (not contiguous)'}")
 
 
-def stream_of(t) -> int:
-    """Handle of PyTorch's current stream on ``t``'s device."""
-    import torch
-    return torch.cuda.current_stream(t.device).cuda_stream
+def current_stream(index: int) -> int:
+    """Handle (cudaStream_t) of PyTorch's current stream on CUDA device
+    ``index``: what ``torch.cuda.current_stream(index).cuda_stream`` gives,
+    without building a Stream object."""
+    return torch._C._cuda_getCurrentRawStream(index)
+
+
+_sm_counts: dict = {}
+
+
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index`` (read once)."""
+    n = _sm_counts.get(index)
+    if n is None:
+        n = _sm_counts[index] = torch.cuda.get_device_properties(
+            index).multi_processor_count
+    return n

@@ -30,10 +30,8 @@ def filter_mask_counts(cols: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor):
                          device=cols.device)
     if n == 0:
         return mask, counts
-    with torch.cuda.device(cols.device):
-        err = build.lib().repro_filter_mask_counts(
-            cols.data_ptr(), lo.data_ptr(), hi.data_ptr(), mask.data_ptr(),
-            counts.data_ptr(), n, c, build.stream_of(cols))
-    build.check(err, "filter_mask_counts")
-    build.count_launch("filter_mask_counts")
+    index = cols.get_device()
+    build.launch("filter_mask_counts", index, build.current_stream(index),
+                 cols.data_ptr(), lo.data_ptr(), hi.data_ptr(), mask.data_ptr(),
+                 counts.data_ptr(), n, c)
     return mask, counts

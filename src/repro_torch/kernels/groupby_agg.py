@@ -37,11 +37,8 @@ def groupby_sum(gids: torch.Tensor, values: torch.Tensor,
     n_blocks = max(1, min(MAX_BLOCKS, -(-n // MIN_ROWS_PER_BLOCK)))
     partials = torch.empty((n_blocks, g, v), dtype=torch.float64,
                            device=values.device)
-    with torch.cuda.device(values.device):
-        err = build.lib().repro_groupby_sum(
-            gids.data_ptr(), values.data_ptr(), partials.data_ptr(),
-            out.data_ptr(), n, v, g, n_blocks, v_chunk, g * v_chunk * 8,
-            build.stream_of(values))
-    build.check(err, "groupby_sum")
-    build.count_launch("groupby_sum")
+    index = values.get_device()
+    build.launch("groupby_sum", index, build.current_stream(index),
+                 gids.data_ptr(), values.data_ptr(), partials.data_ptr(),
+                 out.data_ptr(), n, v, g, n_blocks, v_chunk, g * v_chunk * 8)
     return out

@@ -65,11 +65,9 @@ def hash_probe(probe_keys: torch.Tensor, slots_key: torch.Tensor,
     found = torch.empty(n, dtype=torch.bool, device=probe_keys.device)
     if n == 0:
         return row, found
-    with torch.cuda.device(probe_keys.device):
-        err = build.lib().repro_hash_probe(
-            probe_keys.data_ptr(), slots_key.data_ptr(), slots_row.data_ptr(),
-            row.data_ptr(), found.data_ptr(), n, cap, max_probes,
-            build.stream_of(probe_keys))
-    build.check(err, "hash_probe")
-    build.count_launch("hash_probe")
+    index = probe_keys.get_device()
+    build.launch("hash_probe", index, build.current_stream(index),
+                 probe_keys.data_ptr(), slots_key.data_ptr(),
+                 slots_row.data_ptr(), row.data_ptr(), found.data_ptr(), n,
+                 cap, max_probes)
     return row, found

@@ -32,11 +32,9 @@ def join_expand(order: torch.Tensor, lo: torch.Tensor, counts: torch.Tensor,
     if total == 0:
         return probe_idx, build_idx, matched
     ends = torch.cumsum(counts_out, 0)            # inclusive prefix sum
-    with torch.cuda.device(device):
-        err = build.lib().repro_join_expand(
-            ends.data_ptr(), lo.data_ptr(), counts.data_ptr(),
-            order.data_ptr(), probe_idx.data_ptr(), build_idx.data_ptr(),
-            matched.data_ptr(), n, nb, total, build.stream_of(order))
-    build.check(err, "join_expand")
-    build.count_launch("join_expand")
+    index = order.get_device()
+    build.launch("join_expand", index, build.current_stream(index),
+                 ends.data_ptr(), lo.data_ptr(), counts.data_ptr(),
+                 order.data_ptr(), probe_idx.data_ptr(), build_idx.data_ptr(),
+                 matched.data_ptr(), n, nb, total)
     return probe_idx, build_idx, matched

@@ -9,8 +9,15 @@ import torch
 from . import build
 from .ref import topk_select_ref
 
-TILE = 1024   # keys a block sorts (csrc/topk.cu kTile)
-MAX_K = 128   # the reference's contract: ORDER BY ... LIMIT k <= 128
+TILE = 1024     # the largest tile a block sorts (csrc/topk.cu kTile)
+MIN_TILE = 64   # one warp of compare-exchanges (csrc/topk.cu kMinTile)
+MAX_K = 128     # the reference's contract: ORDER BY ... LIMIT k <= 128
+
+
+def tile_for(n: int) -> int:
+    """Keys the first round's blocks sort: for n <= TILE one block and the
+    next power of two >= max(n, MIN_TILE); above, TILE."""
+    return min(TILE, max(MIN_TILE, 1 << max(n - 1, 0).bit_length()))
 
 
 def scratch_len(n: int, k: int) -> int:
@@ -39,12 +46,13 @@ def topk_select(keys: torch.Tensor, k: int) -> torch.Tensor:
         raise ValueError(f"topk_select takes 1 <= k <= min({MAX_K}, n) and "
                          f"n < 2^31, got k={k}, n={n}")
     out = torch.empty(k, dtype=torch.int32, device=keys.device)
-    scratch = torch.empty(scratch_len(n, k), dtype=torch.int64,
-                          device=keys.device)
-    with torch.cuda.device(keys.device):
-        err = build.lib().repro_topk_select(
-            keys.data_ptr(), n, k, scratch.data_ptr(), out.data_ptr(),
-            build.stream_of(keys))
-    build.check(err, "topk_select")
-    build.count_launch("topk_select")
+    # one round (n <= TILE) needs no scratch: the kernel gets a null pointer
+    n_scratch = scratch_len(n, k)
+    scratch = (torch.empty(n_scratch, dtype=torch.int64, device=keys.device)
+               if n_scratch else None)
+    index = keys.get_device()
+    build.launch("topk_select", index, build.current_stream(index),
+                 keys.data_ptr(), n, k, tile_for(n),
+                 scratch.data_ptr() if scratch is not None else None,
+                 out.data_ptr())
     return out

@@ -18,8 +18,8 @@ step), one JSON line with:
 * ``device_events`` — the number of device activities (launches and copies);
 * ``syncs`` — host calls that wait for the device: scalar reads
   (``aten::item``) and barriers (``cudaDeviceSynchronize``);
-* ``top_device`` — device time by kernel name, and ``top_host`` — host
-  self time by operator, the largest first.
+* ``top_device`` — device time and launches by kernel name, and
+  ``top_host`` — host self time by operator, the largest first.
 
 Run on a machine with a card, from the root of a checkout:
 ``PYTHONPATH=src python3 -m repro_torch.profile_tpch [--sf 1.0] [--out FILE]``
@@ -64,23 +64,25 @@ def profile_query(run, top: int) -> dict:
         run()
         wall = (time.perf_counter() - t0) * 1e3
     device, host = defaultdict(float), defaultdict(float)
+    launches = defaultdict(int)
     intervals, syncs = [], 0
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             intervals.append((e.time_range.start, e.time_range.end))
             device[e.name] += e.time_range.elapsed_us() / 1e3
+            launches[e.name] += 1
         else:
             host[e.name] += e.self_cpu_time_total / 1e3
             syncs += e.name in WAITS
     busy = _busy_ms(intervals)
 
-    def head(d):
-        return [[k[:90], round(v, 4)] for k, v in
-                sorted(d.items(), key=lambda kv: -kv[1])[:top]]
+    def head(d, counts=None):
+        return [[k[:90], round(v, 4), *([counts[k]] if counts else [])]
+                for k, v in sorted(d.items(), key=lambda kv: -kv[1])[:top]]
     return {"wall_ms": wall, "device_busy_ms": busy,
             "idle_share": 1.0 - busy / wall if wall else None,
             "device_events": len(intervals), "syncs": syncs,
-            "top_device": head(device), "top_host": head(host)}
+            "top_device": head(device, launches), "top_host": head(host)}
 
 
 def _lm_runs():

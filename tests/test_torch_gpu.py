@@ -306,3 +306,85 @@ def test_reduced_decode_step_on_card_matches_the_cpu(dev):
         torch.testing.assert_close(a["v"].cpu(), b["v"], rtol=2e-4, atol=2e-4)
     prompts = [list(range(1, n + 1)) for n in (5, 9, 3, 7)]
     assert serve(card, prompts, 6, 32)["tokens"] == serve(cpu, prompts, 6, 32)["tokens"]
+
+
+# the main path's decode shapes: (B, H, KVH, D, S, lengths) — the server's
+# call, decode_32k's cache, float32 group 7 (run in float32 below as well),
+# and batch 1 over a full 32,768-row cache
+MAIN_DECODE = {
+    "server": (8, 24, 8, 128, 8192, [122, 545, 300, 64, 576, 400, 190, 257]),
+    "decode_32k": (4, 24, 8, 128, 32768, [32768, 32769, 1, 20000]),
+    "group7": (4, 28, 4, 64, 1536, [0, 1, 1000, 1537]),
+    "batch1_32k": (1, 24, 8, 128, 32768, [32768]),
+}
+
+
+def _decode_inputs(dev, shape, dtype, seed):
+    b, h, kvh, d, s, lengths = MAIN_DECODE[shape]
+    rng = np.random.default_rng(seed)
+    tdt = getattr(torch, dtype)
+
+    def draw(*size):
+        return torch.from_numpy(rng.standard_normal(size, np.float32)).to(dev, tdt)
+
+    return (draw(b, h, d), draw(b, s, kvh, d), draw(b, s, kvh, d),
+            torch.tensor(lengths, dtype=torch.int32, device=dev))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", sorted(MAIN_DECODE))
+def test_decode_attention_main_path_shapes_on_card(dev, shape, dtype):
+    """The split kernel at the main path's shapes against the plain version
+    (2e-5 in float32, 3e-2 in bf16, and in bf16 within half a bf16 ulp plus
+    1e-5 of the plain version on the inputs cast to float32), one launch."""
+    q, k, v, n = _decode_inputs(dev, shape, dtype, seed=len(shape))
+    build.reset_launch_counts()
+    got = ops.decode_attention(q, k, v, n)
+    assert build.launch_counts()["decode_attention"] == 1
+    want = ref.decode_attention_ref(q, k, v, n)
+    tol = 2e-5 if dtype == "float32" else 3e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    if dtype == "bfloat16":
+        exact = ref.decode_attention_ref(q.float(), k.float(), v.float(), n)
+        assert ((got.float() - exact).abs() <= 2.0 ** -8 * exact.abs() + 1e-5).all()
+
+
+@pytest.mark.parametrize("shape", ["server", "decode_32k", "batch1_32k"])
+def test_decode_attention_is_bitwise_repeatable_on_card(dev, shape):
+    """The last block to finish combines the splits in split order: the
+    same input gives the same bits on every call."""
+    q, k, v, n = _decode_inputs(dev, shape, "bfloat16", seed=7)
+    first = ops.decode_attention(q, k, v, n)
+    for _ in range(3):
+        assert torch.equal(ops.decode_attention(q, k, v, n), first)
+
+
+def test_decode_attention_on_two_streams_in_turn_on_card(dev):
+    """Each stream keeps its own split counters and partials: calls that
+    alternate between two streams stay right."""
+    streams = (torch.cuda.Stream(dev), torch.cuda.Stream(dev))
+    cases = [_decode_inputs(dev, "server", "bfloat16", seed=i) for i in range(4)]
+    outs = []
+    for i, (q, k, v, n) in enumerate(cases):
+        streams[i % 2].wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(streams[i % 2]):
+            outs.append(ops.decode_attention(q, k, v, n))
+    torch.cuda.synchronize(dev)
+    for (q, k, v, n), got in zip(cases, outs):
+        torch.testing.assert_close(got.float(), ref.decode_attention_ref(
+            q, k, v, n).float(), rtol=3e-2, atol=3e-2)
+
+
+@pytest.mark.parametrize("n", [1, 38, 64, 433, 1_024, 1_025])
+def test_topk_select_sized_tiles_on_card(dev, n):
+    """One round on a tile sized to n (n <= 1024) or the rounds above it:
+    exact indices against the plain version, ties and +-0.0 included."""
+    rng = np.random.default_rng(n)
+    x = rng.integers(0, max(n // 4, 2), n).astype(np.float32)
+    x[: min(n, 4)] = np.array([0.0, -0.0, 0.0, -0.0], np.float32)[: min(n, 4)]
+    keys = torch.from_numpy(x).to(dev)
+    for k in sorted({1, min(n, 10), min(n, 128)}):
+        build.reset_launch_counts()
+        got = ops.topk_select(keys, k)
+        assert build.launch_counts()["topk_select"] == 1
+        assert torch.equal(got, ref.topk_select_ref(keys, k))

@@ -19,7 +19,7 @@ from repro.relational.table import Table as RefTable
 from repro_torch.core.kernel_backend import KernelBackend
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import topk_select_ref
-from repro_torch.kernels.topk import scratch_len
+from repro_torch.kernels.topk import scratch_len, tile_for
 from repro_torch.relational.sort import SortKey, sort_table
 from repro_torch.relational.table import Table
 
@@ -71,6 +71,9 @@ def test_wrapper_runs_the_plain_version_on_cpu_tensors():
 @pytest.mark.parametrize("n,k,want", [
     (433, 10, 0),                       # one tile: no scratch
     (1_024, 128, 0),
+    (1, 1, 0),
+    (38, 10, 0),                        # q8's call at 2 M rows
+    (64, 64, 0),
     (1_025, 10, 2 * 10),                # 2 tiles → 20 candidates → done
     (1_048_573, 128, 1_024 * 128 + 128 * 128),
 ])
@@ -139,3 +142,49 @@ def test_try_topk_declines_outside_the_contract():
                         [[("a", True)], 500], [[("a", True)], 129]):
         got, want, hit, ref_hit = _both_topk(cols, keys, limit)
         assert got is None and want is None and hit == ref_hit == 0
+
+
+@pytest.mark.parametrize("n,tile", [(1, 64), (2, 64), (38, 64), (63, 64),
+                                    (64, 64), (433, 512), (1_024, 1_024),
+                                    (1_025, 1_024)])
+def test_one_round_sorts_a_tile_sized_to_n(n, tile):
+    """For n <= 1024 the one block sorts the next power of two >= max(n,
+    64) keys (512 slots at ClickBench's 433 keys, 64 at 38); above 1024
+    every round sorts 1024-key tiles."""
+    assert tile_for(n) == tile
+
+
+def _bitonic_model(x: np.ndarray, k: int) -> np.ndarray:
+    """csrc/topk.cu's one round in numpy: pack (order-preserving key bits,
+    row) into uint64, pad the tile with UINT64_MAX, run the bitonic network
+    on tile_for(n) slots, keep the first k rows."""
+    n = x.shape[0]
+    tile = tile_for(n)
+    u = x.view(np.uint32).copy()
+    u[(u & 0x7FFFFFFF) == 0] = 0                       # -0.0 -> +0.0
+    u = np.where(u & 0x80000000, ~u, u | 0x80000000).astype(np.uint64)
+    s = np.full(tile, np.iinfo(np.uint64).max, np.uint64)
+    s[:n] = (u << np.uint64(32)) | np.arange(n, dtype=np.uint64)
+    t = np.arange(tile // 2)
+    size = 2
+    while size <= tile:
+        stride = size // 2
+        while stride > 0:
+            i = 2 * t - (t & (stride - 1))
+            j = i + stride
+            a, b = s[i], s[j]
+            swap = (a > b) == ((i & size) == 0)
+            s[i], s[j] = np.where(swap, b, a), np.where(swap, a, b)
+            stride //= 2
+        size *= 2
+    return (s[:k] & np.uint64(0xFFFFFFFF)).astype(np.int32)
+
+
+@pytest.mark.parametrize("n", [1, 2, 38, 63, 64, 433, 1_024])
+@pytest.mark.parametrize("kind", ["ties", "zeros", "descending", "normal"])
+def test_sized_tile_network_matches_the_plain_version(n, kind):
+    """The network on the sized tile gives the plain version's indices."""
+    x = _keys(kind, n, seed=n + 17)
+    for k in sorted({1, min(n, 10), min(n, 128)}):
+        want = topk_select_ref(torch.from_numpy(x), k).numpy()
+        np.testing.assert_array_equal(_bitonic_model(x, k), want)

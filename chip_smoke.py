@@ -14,8 +14,10 @@ nothing of JAX or of the JAX package ``repro``, and:
    group-by counts exactly and its other sums to within 2e-7 x sum|v| per
    (group, column): both sum in float64 in different orders and round to
    float32, and a relative tolerance fails on centred sums near zero.
-   ``groupby_sum`` is held at Q1's call and at ClickBench q2's one-group
-   call, ``join_expand`` at both of Q5's calls, ``topk_select`` at a
+   ``groupby_sum`` is held at Q1's call, at ClickBench q2's one-group
+   call and at Q3's first 4096-group call, ``join_expand`` at both of Q5's
+   calls and at a skewed case, over the whole bucket (filler included),
+   ``topk_select`` at a
    main-path shape and at a 2^20-key shape with heavy ties, and
    ``decode_attention`` at the server's shape (batch 8, llama3.2-3b's
    heads, an 8192-row bf16 cache), at 32,768 rows (batch 4, and batch 1)
@@ -121,10 +123,13 @@ REPLACES = {
     "topk_select": "src/repro/kernels/topk.py:60",
     "decode_attention": "src/repro/kernels/decode_attention.py:68",
 }
-# the names of each kernel's grids, as torch.profiler reports them
+# the names of each kernel's grids, as torch.profiler reports them (and,
+# for groupby_sum, the two grids of its earlier design, so that
+# kernel_turns.py can time a checkout that has it)
 DEVICE_NAMES = {
     "filter_mask_counts": ("filter_mask_counts_kernel",),
-    "groupby_sum": ("groupby_partial_kernel", "groupby_merge_kernel"),
+    "groupby_sum": ("groupby_sum_kernel", "groupby_partial_kernel",
+                    "groupby_merge_kernel"),
     "hash_probe": ("hash_probe_kernel",),
     "join_expand": ("join_expand_kernel",),
     "topk_select": ("topk_tile_kernel",),
@@ -201,19 +206,23 @@ def device_ms(name: str, fn, iters: int = 20, warmup: int = 3) -> tuple:
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    total, grids = 0.0, 0
-    for e in prof.events():
-        if (e.device_type == torch.autograd.DeviceType.CUDA
-                and any(k in e.name for k in DEVICE_NAMES[name])):
-            total += e.time_range.elapsed_us()
-            grids += 1
-    if grids == 0:
-        raise AssertionError(f"{name}: the profiler saw none of its grids")
-    return total / iters / 1e3, grids / iters
+    # a profiled loop has come back without the device's events after
+    # several others in one process: such a loop is taken again, twice at
+    # most
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        total, grids = 0.0, 0
+        for e in prof.events():
+            if (e.device_type == torch.autograd.DeviceType.CUDA
+                    and any(k in e.name for k in DEVICE_NAMES[name])):
+                total += e.time_range.elapsed_us()
+                grids += 1
+        if grids:
+            return total / iters / 1e3, grids / iters
+    raise AssertionError(f"{name}: the profiler saw none of its grids")
 
 
 def host_ms(fn, iters: int = 200, warmup: int = 3) -> float:
@@ -297,9 +306,10 @@ def _groupby_case(gids: np.ndarray, vals: np.ndarray, g: int, what: str,
     torch.cuda.synchronize()
     # the plain version sums in float64 and rounds once, as the kernel does
     want = ref.groupby_sum_ref(gi, va, g)
-    gl = gi.long()
+    # sum|v| per (group, column), over the rows the call keeps
+    keep = (gi >= 0) & (gi < g)
     scale = torch.zeros((g, v), dtype=torch.float64, device=dev).index_add_(
-        0, gl, va.double().abs())
+        0, torch.where(keep, gi, 0).long(), va.double().abs() * keep[:, None])
     err = (got.double() - want.double()).abs()
     # the counts (column 0) are exact in float32 below 2^24 rows a group;
     # on the other columns the two float64 sums, taken in other orders,
@@ -309,6 +319,7 @@ def _groupby_case(gids: np.ndarray, vals: np.ndarray, g: int, what: str,
         raise AssertionError(f"groupby_sum ({what}): the count column is not "
                              f"exact")
     rel = (err[:, 1:] / scale[:, 1:].clamp(min=1e-300)).max()
+    gl_kept, va_kept = gi[keep].long(), va[keep]
     if not bool((err[:, 1:] <= 2e-7 * scale[:, 1:]).all()):
         raise AssertionError(f"groupby_sum ({what}): error {float(rel):.3g} "
                              f"x sum|v| exceeds 2e-7")
@@ -320,8 +331,9 @@ def _groupby_case(gids: np.ndarray, vals: np.ndarray, g: int, what: str,
                      "(group, column)",
         **kernel_times("groupby_sum", lambda: ops.groupby_sum(gi, va, g)),
         "plain_ms": cuda_ms(lambda: ref.groupby_sum_ref(gi, va, g)),
+        # index_add_ takes only gids in range: timed on the rows the call keeps
         "library_ms": cuda_ms(lambda: torch.zeros(
-            (g, v), dtype=torch.float32, device=dev).index_add_(0, gl, va)),
+            (g, v), dtype=torch.float32, device=dev).index_add_(0, gl_kept, va_kept)),
         **bound(n * 4 + n * v * 4 + g * v * 4, n * v),
     }
 
@@ -336,8 +348,11 @@ def _centred_split(vals: np.ndarray, col: int, x: np.ndarray) -> None:
 
 def check_groupby(rng, dev) -> dict:
     """The row is Q1's call at SF1 (4 live groups); ClickBench q2's call at
-    2,000,000 rows, where every row falls in one group, goes under
-    ``other_shapes`` (q0, q1, q20 and q43x call it with one group too)."""
+    2,000,000 rows, where every row falls in one group (q0, q1, q20 and q43x
+    call it with one group too), and Q3's first 4096-group call (its 11,932
+    groups cut into 4096-group calls by groupby_sum_large; gids past the
+    call's groups dropped; the shared-memory path) go under
+    ``other_shapes``."""
     n, v, g = 5_996_021, 15, 128       # Q1: 4 groups, called with G=128
     gids = rng.integers(0, 4, n).astype(np.int32)
     # the columns core/kernel_backend.py builds for Q1: a ones column, then
@@ -361,7 +376,15 @@ def check_groupby(rng, dev) -> dict:
     ).astype(np.float64))
     q2 = _groupby_case(np.zeros(n, np.int32), vals, 128,
                        "ClickBench q2 at 2 M rows, 1 live group", dev)
-    return {**q1, "other_shapes": [q2]}
+    # Q3: count and sum(revenue) of 31,617 rows over 11,932 groups, the
+    # first of groupby_sum_large's 4096-group calls
+    n = 31_617
+    vals = np.empty((n, 3), np.float32)
+    vals[:, 0] = 1.0
+    _centred_split(vals, 1, rng.uniform(900, 105_000, n))
+    q3 = _groupby_case(rng.integers(0, 11_932, n).astype(np.int32), vals, 4096,
+                       "Q3's first 4096-group call of 11,932 groups", dev)
+    return {**q1, "other_shapes": [q2, q3]}
 
 
 def _probe_rounds(keys, slots_row) -> float:
@@ -417,55 +440,71 @@ def check_probe(rng, dev) -> dict:
     }
 
 
-def _expand_case(pk: np.ndarray, bk: np.ndarray, what: str, dev) -> dict:
+def _expand_case(order, lo, counts, what: str) -> dict:
+    """join_expand of an inner join's runs against its plain version over
+    the whole bucket, filler included."""
     import torch
     from repro_torch.kernels import ops, ref
-    from repro_torch.relational.join import join_match
-    order, lo, counts = join_match(torch.from_numpy(pk).to(dev),
-                                   torch.from_numpy(bk).to(dev))
-    n = lo.shape[0]
+    n, nb = lo.shape[0], order.shape[0]
     total = int(counts.sum())
     t_pad = ops.bucket_size(total)
     got = ops.join_expand(order, lo, counts, counts, t_pad)
     torch.cuda.synchronize()
     want = ref.join_expand_ref(order, lo, counts, counts, t_pad)
-    bad = sum(int((a[:total] != b[:total]).sum()) for a, b in zip(got, want))
+    bad = sum(int((a != b).sum()) for a, b in zip(got, want))
     if bad:
         raise AssertionError(f"join_expand ({what}): {bad} entries differ "
-                             f"from the plain version in the first {total}")
+                             f"from the plain version over the {t_pad} bucket")
     return {
         "name": "join_expand",
-        "shape": f"{n} runs, {bk.shape[0]} build rows, {total} outputs "
+        "shape": f"{n} runs, {nb} build rows, {total} outputs "
                  f"in a {t_pad} bucket ({what})",
-        "max_abs_err": 0.0, "tolerance": "exact on the first total outputs",
+        "max_abs_err": 0.0,
+        "tolerance": "exact over the whole bucket, filler included",
         **kernel_times("join_expand",
                        lambda: ops.join_expand(order, lo, counts, counts, t_pad)),
         "plain_ms": cuda_ms(lambda: ref.join_expand_ref(order, lo, counts,
                                                          counts, t_pad)),
         "library_ms": None,
-        # counts_out read once for its prefix sum, the three outputs written
+        # counts_out read once, the three outputs written
         # over the bucket, and lo, counts and order gathered once per output
         **bound(n * 8 + t_pad * 17 + total * 3 * 8,
                 t_pad * 2 * n.bit_length()),
     }
 
 
+def _join_runs(pk: np.ndarray, bk: np.ndarray, dev):
+    import torch
+    from repro_torch.relational.join import join_match
+    return join_match(torch.from_numpy(pk).to(dev), torch.from_numpy(bk).to(dev))
+
+
 def check_expand(rng, dev) -> dict:
     """Q5 calls join_expand twice at SF1; the larger call is the row's
-    numbers, the smaller goes under ``other_shapes``."""
+    numbers, the smaller and a skewed case (one run of 300,000 among
+    1,000,000 empty runs: one block writes it all) go under
+    ``other_shapes``."""
+    import torch
     # lineitem ⋈ orders, which try_probe declines (its build of the 1994
     # orders is too large for build_table32): lineitem's orderkeys, sorted as
     # the table is, into ~227,000 distinct orderkeys of 1.5 M orders
     n_orders = 1_500_000
     pk = np.sort(rng.integers(0, n_orders, 5_996_021))
     bk = np.sort(rng.choice(n_orders, 227_000, replace=False)).astype(np.int64)
-    large = _expand_case(pk, bk, "Q5 lineitem x orders", dev)
+    large = _expand_case(*_join_runs(pk, bk, dev), "Q5 lineitem x orders")
     # the two-key join on (l_suppkey, c_nationkey), combined into one key
     domain = 50_000
     bk = rng.choice(domain, 2_003, replace=False).astype(np.int64)
     pk = rng.integers(0, domain, 968_874)
-    small = _expand_case(pk, bk, "Q5 (l_suppkey, c_nationkey) join", dev)
-    return {**large, "other_shapes": [small]}
+    small = _expand_case(*_join_runs(pk, bk, dev),
+                         "Q5 (l_suppkey, c_nationkey) join")
+    n, long_run, at = 1_000_000, 300_000, 654_321
+    counts = torch.zeros(n, dtype=torch.int64, device=dev)
+    counts[at] = long_run
+    lo = torch.zeros(n, dtype=torch.int64, device=dev)
+    order = torch.from_numpy(rng.permutation(long_run)).to(dev)
+    skew = _expand_case(order, lo, counts, "skew: one run of 300,000")
+    return {**large, "other_shapes": [small, skew]}
 
 
 def _topk_case(keys_np: np.ndarray, k: int, what: str, dev) -> dict:
@@ -648,6 +687,24 @@ def compare_tables(got: dict, want: dict):
     return worst, worst_col
 
 
+def _groupby_calls(fn) -> list:
+    """Run ``fn()`` and return the (N, V, G) of each ``groupby_sum`` call it
+    makes (groupby_sum_large calls the wrapper through ``ops``)."""
+    from repro_torch.kernels import ops
+    calls, wrapped = [], ops.groupby_sum
+
+    def record(gids, values, n_groups):
+        calls.append(list(values.shape) + [int(n_groups)])
+        return wrapped(gids, values, n_groups)
+
+    ops.groupby_sum = record
+    try:
+        fn()
+    finally:
+        ops.groupby_sum = wrapped
+    return calls
+
+
 def run_main_path() -> dict:
     import torch
     from repro_torch.core.executor import SiriusEngine
@@ -704,14 +761,14 @@ def run_main_path() -> dict:
     per_query = []
     for qid in ORDER:
         prof.executor.op_times.clear()
-        prof.execute(QUERIES[qid]())
+        agg_calls = _groupby_calls(lambda: prof.execute(QUERIES[qid]()))
         op_times = dict(prof.executor.op_times)
         ref_out, plain_cold = timed(plain, qid)
         plain_warm = statistics.median(timed(plain, qid)[1] for _ in range(3))
         err, err_col = compare_tables(results[qid]["out"], ref_out.to_host())
         row = {"query": f"Q{qid}", "rows": len(next(iter(ref_out.to_host().values()))),
                "hits": results[qid]["hits"], "launches": results[qid]["launches"],
-               "profiled_op_seconds": op_times,
+               "profiled_op_seconds": op_times, "groupby_sum_calls": agg_calls,
                "cold_s": results[qid]["cold_s"], "warm_s": results[qid]["warm_s"],
                "plain_engine_cold_s": plain_cold, "plain_engine_warm_s": plain_warm,
                "max_rel_err": err, "max_rel_err_column": err_col}
@@ -1005,6 +1062,7 @@ def main() -> int:
             "launches_by_path": {p: c[name] for p, c in by_path.items()},
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "device_ms": row["device_ms"],
+            "grids_per_call": row["grids_per_call"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
             "shape": row["shape"],

@@ -1,19 +1,22 @@
 #!/usr/bin/env python3
-"""Time the top-k and decode-attention wrappers of two checkouts in turns
-on one card, and where one wrapper call's host time goes.
+"""Time the kernel wrappers of two checkouts in turns on one card, and
+where one wrapper call's host time goes.
 
-    PYTHONPATH=src python3 -m repro_torch.kernel_turns OTHER_ROOT [--out FILE]
+    PYTHONPATH=src python3 -m repro_torch.kernel_turns OTHER_ROOT \
+        [--checks groupby,expand] [--out FILE]
 
-runs ``chip_smoke.py``'s ``check_topk`` and ``check_decode_attention`` (this
-checkout's script: the same inputs from its seed, each kernel held against
-its own checkout's plain version, the same timers: ``ms``, ``device_ms``,
-``host_ms``, ``plain_ms``, ``library_ms``) four times, each in a process of
-its own that imports ``repro_torch`` from one checkout, in the order
-OTHER, this, this, OTHER; each process builds its checkout's kernels.
-Then it times, in this checkout, the host path of one wrapper call piece
-by piece: the whole call, the entry point alone (the ctypes call and the
-launch), each check and allocation, and the helpers a wrapper used before
-(a set of device types, a ``torch.cuda.Stream`` object, a
+runs ``chip_smoke.py``'s phase-3 checks named by ``--checks`` (``filter``,
+``groupby``, ``probe``, ``expand``, ``topk``, ``decode``; all six by
+default) from this checkout's script: the same inputs from its seed, each
+kernel held against its own checkout's plain version, the same timers
+(``ms``, ``device_ms``, ``host_ms``, ``plain_ms``, ``library_ms``), four
+times, each in a process of its own that imports ``repro_torch`` from one
+checkout, in the order OTHER, this, this, OTHER (one process a check;
+the first of a checkout builds its kernels).  Then it times, in this checkout, the host path of
+one wrapper call (top-k, decode attention, group-by sum, join expansion)
+piece by piece: the whole call, the entry point alone (the ctypes call
+and the launch), each check and allocation, and the helpers a wrapper
+used before (a set of device types, a ``torch.cuda.Stream`` object, a
 ``torch.cuda.device`` context, an empty scratch tensor).  ``--pieces``
 alone runs only that.  Every line is one JSON object with the card's
 ``nvidia-smi`` name and power limit.
@@ -29,32 +32,39 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[2]
 
+# --checks name -> chip_smoke.py's phase-3 check
+CHECKS = {"filter": "check_filter", "groupby": "check_groupby",
+          "probe": "check_probe", "expand": "check_expand",
+          "topk": "check_topk", "decode": "check_decode_attention"}
+
 CHILD = """
 import json, sys
 import numpy as np, torch
 sys.path.insert(0, {root!r})
 import chip_smoke
-dev = torch.device("cuda", 0)
-for check in (chip_smoke.check_topk, chip_smoke.check_decode_attention):
-    print(json.dumps(check(np.random.default_rng(chip_smoke.SEED), dev)),
-          flush=True)
+check = getattr(chip_smoke, {check!r})
+print(json.dumps(check(np.random.default_rng(chip_smoke.SEED),
+                       torch.device("cuda", 0))), flush=True)
 """
 
 
-def turns(other: Path, card: str) -> list:
-    """check_topk and check_decode_attention of OTHER, this, this, OTHER."""
+def turns(other: Path, card: str, checks: list) -> list:
+    """The named checks of OTHER, this, this, OTHER: each check in a
+    process of its own (torch.profiler, which ``device_ms`` uses, has lost
+    a kernel's events after several profiled loops in one process)."""
     lines = []
     for turn, root in enumerate((other, ROOT, ROOT, other)):
         env = dict(os.environ, PYTHONPATH=str(root / "src"))
         env.pop("REPRO_TORCH_BUILD_DIR", None)   # each checkout builds its own
-        out = subprocess.run([sys.executable, "-c", CHILD.format(root=str(ROOT))],
-                             env=env, capture_output=True, text=True)
-        if out.returncode != 0:
-            raise RuntimeError(f"turn {turn} ({root}) failed:\n{out.stderr[-4000:]}")
-        for text in out.stdout.splitlines():
-            row = json.loads(text)
+        for check in checks:
+            child = CHILD.format(root=str(ROOT), check=CHECKS[check])
+            out = subprocess.run([sys.executable, "-c", child],
+                                 env=env, capture_output=True, text=True)
+            if out.returncode != 0:
+                raise RuntimeError(f"turn {turn} ({root}), {check} failed:\n"
+                                   f"{out.stderr[-4000:]}")
             lines.append({"turn": turn, "checkout": str(root), "card": card,
-                          **row})
+                          **json.loads(out.stdout.splitlines()[-1])})
     return lines
 
 
@@ -67,7 +77,10 @@ def pieces(card: str) -> list:
     sys.path.insert(0, str(ROOT))
     import chip_smoke
     from .kernels import build, ops
+    from .kernels import groupby_agg as ga
+    from .kernels import join_expand as je
     from .kernels.decode_attention import _workspace, split_count
+    from .relational.join import join_match
 
     dev = torch.device("cuda", 0)
     index = 0
@@ -89,6 +102,36 @@ def pieces(card: str) -> list:
     tickets, part = _workspace(index, stream, 8 * 24, 8 * 24 * n_split * 130, dev)
     topk_entry = build._entries["topk_select"]
     decode_entry = build._entries["decode_attention"]
+    # groupby_sum at 1,000 rows (V=5, G=128: ClickBench's columns, a size
+    # whose device time is below its host time) and join_expand at Q5's
+    # two-key join (968,874 runs, 38,705 outputs in 2^16 here)
+    gids = torch.zeros(1000, dtype=torch.int32, device=dev)
+    vals = torch.ones((1000, 5), device=dev)
+    gout = torch.empty((128, 5), device=dev)
+    acc, gtickets = ga._workspace(index, stream, 128 * 5, 1, dev)
+    rows = ga.tile_rows(5, 8)
+    part_bytes, smem = ga.smem_layout(128, 5, 5, rows)
+    groupby_entry = build._entries["groupby_sum"]
+    order, lo, counts = join_match(
+        torch.from_numpy(rng.integers(0, 50_000, 968_874)).to(dev),
+        torch.from_numpy(rng.choice(50_000, 2_003, replace=False)).to(dev))
+    t_pad = ops.bucket_size(int(counts.sum()))
+    outs = ops.join_expand(order, lo, counts, counts, t_pad)
+    tiles, helpers = je.expand_grid(lo.shape[0], t_pad, build.sm_count(index))
+    ws = je._workspace(index, stream, dev)
+    join_fn = build._entries["join_expand"]
+
+    def join_entry():   # with the workspace's bookkeeping, as the wrapper
+        with ws.lock:
+            status, base, epoch = ws.next_launch(tiles)
+            err = join_fn(counts.data_ptr(), lo.data_ptr(), counts.data_ptr(),
+                          order.data_ptr(), outs[0].data_ptr(),
+                          outs[1].data_ptr(), outs[2].data_ptr(), lo.shape[0],
+                          order.shape[0], t_pad, tiles, helpers,
+                          status.data_ptr(), ws.counter.data_ptr(), base, epoch,
+                          stream)
+            assert err == 0
+            ws.base += tiles + helpers
 
     def device_context():
         with torch.cuda.device(dev):
@@ -106,6 +149,21 @@ def pieces(card: str) -> list:
             q.data_ptr(), kv.data_ptr(), kv.data_ptr(), n.data_ptr(),
             out.data_ptr(), part.data_ptr(), tickets.data_ptr(), 8, 8192, 24,
             8, 128, n_split, 1, stream),
+        "groupby_sum: the wrapper (1,000 rows)": lambda: ops.groupby_sum(
+            gids, vals, 128),
+        "groupby_sum: the entry point alone": lambda: groupby_entry(
+            gids.data_ptr(), vals.data_ptr(), acc.data_ptr(),
+            gtickets.data_ptr(), gout.data_ptr(), 1000, 5, 128, 1, 5, 1000,
+            8, rows, part_bytes, smem, 1, stream),
+        "join_expand: the wrapper": lambda: ops.join_expand(
+            order, lo, counts, counts, t_pad),
+        "join_expand: the entry point alone": join_entry,
+        "join_expand: its three outputs (torch.empty)": lambda: [
+            torch.empty(t_pad, dtype=dt, device=dev)
+            for dt in (torch.int64, torch.int64, torch.bool)],
+        "join_expand: build.on_cpu and four build.require": lambda: [
+            build.on_cpu(order, lo, counts, counts)] + [
+            build.require(t, "t", torch.int64, 1) for t in (order, lo, counts, counts)],
         "decode_attention: split_count and sm_count": lambda: split_count(
             8, 8, 3, 8192, build.sm_count(index)),
         "decode_attention: the workspace lookup": lambda: _workspace(
@@ -132,6 +190,9 @@ def pieces(card: str) -> list:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("other", nargs="?", help="root of the other checkout")
+    ap.add_argument("--checks", default=",".join(CHECKS),
+                    help="comma-separated checks to time in turns "
+                         f"(default: all of {', '.join(CHECKS)})")
     ap.add_argument("--pieces", action="store_true",
                     help="only the host path's pieces, in this checkout")
     ap.add_argument("--out", default=None, help="also write the lines here")
@@ -142,10 +203,14 @@ def main() -> int:
         return 2
     if not args.pieces and not args.other:
         ap.error("give the other checkout's root, or --pieces")
+    checks = [c for c in args.checks.split(",") if c]
+    unknown = sorted(set(checks) - set(CHECKS))
+    if unknown:
+        ap.error(f"unknown checks {unknown}; choose from {', '.join(CHECKS)}")
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         check=True, capture_output=True, text=True).stdout.strip().splitlines()[0]
-    lines = [] if args.pieces else turns(Path(args.other).resolve(), card)
+    lines = [] if args.pieces else turns(Path(args.other).resolve(), card, checks)
     lines += pieces(card)
     for row in lines:
         print(json.dumps(row), flush=True)

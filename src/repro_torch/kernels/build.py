@@ -33,9 +33,11 @@ _P, _I32, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 # entry point -> argument types (pointers and the stream as c_void_p)
 SIGNATURES = {
     "repro_filter_mask_counts": (_P, _P, _P, _P, _P, _I64, _I32, _P),
-    "repro_groupby_sum": (_P, _P, _P, _P, _I64, _I32, _I32, _I32, _I32, _I32, _P),
+    "repro_groupby_sum": (_P, _P, _P, _P, _P, _I64, _I32, _I32, _I32, _I32,
+                          _I64, _I32, _I32, _I32, _I32, _I32, _P),
     "repro_hash_probe": (_P, _P, _P, _P, _P, _I64, _I32, _I32, _P),
-    "repro_join_expand": (_P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _P),
+    "repro_join_expand": (_P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64,
+                          _I32, _P, _P, ctypes.c_uint64, ctypes.c_uint32, _P),
     "repro_topk_select": (_P, _I64, _I32, _I32, _P, _P, _P),
     "repro_decode_attention": (_P, _P, _P, _P, _P, _P, _P, _I32, _I32, _I32,
                                _I32, _I32, _I32, _I32, _P),
@@ -152,8 +154,8 @@ def launch(name: str, index: int, stream: int, *args) -> None:
 # ---------------------------------------------------------------------------
 # launch counts: ``launch`` adds one where a wrapper launches its kernel, so
 # a count is of wrapper calls that reached the card.  A call may run more than
-# one grid: groupby_sum's partial and merge passes, and topk_select's rounds
-# (one while n <= 1024 keys, as on the ClickBench path, more above that).
+# one grid: topk_select's rounds (one while n <= 1024 keys, as on the
+# ClickBench path, more above that).
 # ---------------------------------------------------------------------------
 
 KERNELS = ("filter_mask_counts", "groupby_sum", "hash_probe", "join_expand",

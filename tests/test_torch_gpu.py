@@ -100,8 +100,212 @@ def test_join_expand_on_card(dev, n_probe, n_build, key_range, how):
     t_pad = ops.bucket_size(total)
     got = ops.join_expand(order, lo, counts, counts_out, t_pad)
     want = ref.join_expand_ref(order, lo, counts, counts_out, t_pad)
+    for a, b in zip(got, want):     # the whole bucket, filler included
+        assert torch.equal(a, b)
+
+
+def _groupby_want(gids, vals, g):
+    """The float64 sums of the rows in range, and sum|v| per cell."""
+    ok = (gids >= 0) & (gids < g)
+    safe = torch.where(ok, gids, 0).long()
+    keep = vals.double() * ok[:, None]
+    zeros = torch.zeros((g, vals.shape[1]), dtype=torch.float64, device=vals.device)
+    return zeros.index_add(0, safe, keep), zeros.index_add(0, safe, keep.abs())
+
+
+def _check_groupby(dev, n, g, v, seed, gid_range=None):
+    """groupby_sum against the float64 sums of the same float32 inputs:
+    column 0 (ones) exactly, the others within 1e-6 x sum|v|; one launch."""
+    rng = np.random.default_rng(seed)
+    lo, hi = gid_range or (-1, g + 1)
+    gids = torch.from_numpy(rng.integers(lo, hi, n).astype(np.int32)).to(dev)
+    vals = rng.normal(size=(n, v)).astype(np.float32)
+    vals[:, 0] = 1.0
+    vals = torch.from_numpy(vals).to(dev)
+    build.reset_launch_counts()
+    got = ops.groupby_sum(gids, vals, g)
+    assert build.launch_counts()["groupby_sum"] == 1
+    want, scale = _groupby_want(gids, vals, g)
+    assert torch.equal(got[:, 0].double(), want[:, 0])
+    assert bool(((got.double() - want).abs() <= 1e-6 * scale + 1e-30).all())
+    return got
+
+
+@pytest.mark.parametrize("g", [12, 128, 4096])
+def test_groupby_sum_register_and_shared_groups_on_card(dev, g):
+    """Gids uniform over [-1, G]: the first 8 groups add in registers, the
+    rest in shared memory, -1 and G are dropped."""
+    _check_groupby(dev, 300_000, g, 3, seed=g)
+
+
+@pytest.mark.parametrize("v", [1, 16, 17, 33, 300])
+def test_groupby_sum_column_edges_on_card(dev, v):
+    """V = 16 is the widest two-rows-a-warp chunk, 17 the narrowest full
+    warp, 33 two column chunks, 300 tiles narrower than a warp's step;
+    gids over both paths."""
+    _check_groupby(dev, 200_003, 128, v, seed=v, gid_range=(-1, 20))
+
+
+@pytest.mark.parametrize("n", [1, 2, 12_345, 1_000_001])
+def test_groupby_sum_ragged_row_counts_on_card(dev, n):
+    """N = 1, and N not a multiple of a block's slice or a warp's step."""
+    _check_groupby(dev, n, 128, 5, seed=n, gid_range=(0, 10))
+
+
+@pytest.mark.parametrize("v", [3, 15])
+def test_groupby_sum_unaligned_inputs_on_card(dev, v):
+    """gids and values that do not start on a 16-byte boundary (views one
+    row in) take 4-byte copies into the ring."""
+    rng = np.random.default_rng(v)
+    n = 100_001
+    gids = torch.from_numpy(rng.integers(-1, 40, n + 1).astype(np.int32)).to(dev)[1:]
+    vals = torch.from_numpy(rng.normal(size=(n + 1, v)).astype(np.float32)).to(dev)[1:]
+    assert gids.data_ptr() % 16 and vals.data_ptr() % 16
+    got = ops.groupby_sum(gids, vals, 128)
+    want, scale = _groupby_want(gids, vals, 128)
+    assert bool(((got.double() - want).abs() <= 1e-6 * scale + 1e-30).all())
+
+
+@pytest.mark.parametrize("g", [1, 128, 4096])
+def test_groupby_sum_every_gid_dropped_on_card(dev, g):
+    n = 50_000
+    gids = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    gids[::2] = g
+    vals = torch.ones((n, 4), device=dev)
+    got = ops.groupby_sum(gids, vals, g)
+    assert torch.equal(got, torch.zeros_like(got))
+
+
+def test_groupby_sum_on_two_streams_in_turn_on_card(dev):
+    """Each stream keeps its own float64 accumulator and ticket counters,
+    which every launch leaves at zero: calls that alternate between two
+    streams stay right, and the scratch is zero after them."""
+    from repro_torch.kernels import groupby_agg
+    streams = (torch.cuda.Stream(dev), torch.cuda.Stream(dev))
+    rng = np.random.default_rng(21)
+    cases = []
+    for i in range(6):
+        g = (128, 4096, 20)[i % 3]
+        gids = torch.from_numpy(rng.integers(-1, g + 1, 100_000).astype(np.int32)).to(dev)
+        vals = torch.from_numpy(rng.normal(size=(100_000, 1 + i)).astype(np.float32)).to(dev)
+        cases.append((gids, vals, g))
+    outs = []
+    for i, (gids, vals, g) in enumerate(cases):
+        streams[i % 2].wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(streams[i % 2]):
+            outs.append(ops.groupby_sum(gids, vals, g))
+    torch.cuda.synchronize(dev)
+    for (gids, vals, g), got in zip(cases, outs):
+        want, scale = _groupby_want(gids, vals, g)
+        assert bool(((got.double() - want).abs() <= 1e-6 * scale + 1e-30).all())
+    for st in streams:
+        acc, tickets = groupby_agg._workspaces[(dev.index or 0, st.cuda_stream)]
+        assert not bool(acc.any()) and not bool(tickets.any())
+
+
+def _check_expand(order, lo, counts, counts_out, total):
+    """join_expand against the plain version over the whole bucket, in one
+    launch."""
+    build.reset_launch_counts()
+    got = ops.join_expand(order, lo, counts, counts_out, total)
+    assert build.launch_counts()["join_expand"] == int(total > 0)
+    want = ref.join_expand_ref(order, lo, counts, counts_out, total)
     for a, b in zip(got, want):
-        assert torch.equal(a[:total], b[:total])
+        assert a.shape == (total,) and torch.equal(a, b)
+
+
+def test_join_expand_one_long_run_on_card(dev):
+    """Skew: one run of 300,000 among 999,999 empty runs is written by one
+    block, in chunks; the filler after it belongs to the last (empty) run."""
+    n, long_run = 1_000_000, 300_000
+    counts = torch.zeros(n, dtype=torch.int64, device=dev)
+    counts[654_321] = long_run
+    lo = torch.zeros(n, dtype=torch.int64, device=dev)
+    order = torch.from_numpy(np.random.default_rng(1).permutation(long_run)).to(dev)
+    _check_expand(order, lo, counts, counts, ops.bucket_size(long_run))
+
+
+@pytest.mark.parametrize("at", [0, 2047, 2048, 399_999])
+def test_join_expand_long_run_placed_anywhere_on_card(dev, at):
+    """A run of 100,000 at a tile's first or last run, or the last run
+    (its outputs run into the filler); tiles past 8,192 outputs leave the
+    rest to the helper blocks."""
+    n, long_run = 400_000, 100_000
+    counts = torch.zeros(n, dtype=torch.int64, device=dev)
+    counts[at] = long_run
+    counts[1::1000] += 1
+    lo = torch.zeros(n, dtype=torch.int64, device=dev)
+    order = torch.from_numpy(np.random.default_rng(at).permutation(long_run)).to(dev)
+    _check_expand(order, lo, counts, counts, ops.bucket_size(int(counts.sum())))
+
+
+def test_join_expand_many_to_many_on_card(dev):
+    """Every tile has far more than 8,192 outputs (runs of 0-39): the
+    helpers write most of the output, tile by tile."""
+    rng = np.random.default_rng(4)
+    n, nb = 60_000, 50_000
+    counts = torch.from_numpy(rng.integers(0, 40, n)).to(dev)
+    lo = torch.from_numpy(rng.integers(0, nb - 39, n)).to(dev)
+    order = torch.from_numpy(rng.permutation(nb)).to(dev)
+    _check_expand(order, lo, counts, counts, ops.bucket_size(int(counts.sum())))
+
+
+@pytest.mark.parametrize("n", [1, 2048, 2049, 100_000])
+def test_join_expand_every_count_zero_on_card(dev, n):
+    """Total 0: the whole bucket of 8 is filler of the last run."""
+    z = torch.zeros(n, dtype=torch.int64, device=dev)
+    order = torch.arange(5, device=dev)
+    _check_expand(order, z + 3, z, z, ops.bucket_size(0))
+
+
+@pytest.mark.parametrize("n_probe,key_range", [(5_000, 3_000), (2_000_000, 4_000_000)])
+def test_join_expand_left_join_on_card(dev, n_probe, key_range):
+    """counts_out = max(counts, 1): unmatched rows emit one unmatched output."""
+    from repro_torch.relational.join import join_match
+    rng = np.random.default_rng(n_probe)
+    pk = torch.from_numpy(rng.integers(0, key_range, n_probe)).to(dev)
+    bk = torch.from_numpy(rng.integers(0, key_range, 100_000)).to(dev)
+    order, lo, counts = join_match(pk, bk)
+    counts_out = counts.clamp(min=1)
+    _check_expand(order, lo, counts, counts_out,
+                  ops.bucket_size(int(counts_out.sum())))
+
+
+@pytest.mark.parametrize("cut", [1, 1000, 2 ** 15])
+def test_join_expand_bucket_shorter_than_total_on_card(dev, cut):
+    """A bucket shorter than the true total cuts the output there."""
+    from repro_torch.relational.join import join_match
+    rng = np.random.default_rng(cut)
+    pk = torch.from_numpy(rng.integers(0, 1000, 400_000)).to(dev)
+    bk = torch.from_numpy(rng.integers(0, 1000, 3_000)).to(dev)
+    order, lo, counts = join_match(pk, bk)
+    assert int(counts.sum()) > cut
+    _check_expand(order, lo, counts, counts, cut)
+
+
+def test_join_expand_many_calls_on_two_streams_on_card(dev):
+    """The status words and tile counter are reused, never zeroed: many
+    calls of other sizes, alternating between two streams, stay right."""
+    from repro_torch.relational.join import join_match
+    streams = (torch.cuda.Stream(dev), torch.cuda.Stream(dev))
+    rng = np.random.default_rng(8)
+    cases = []
+    for i in range(12):
+        n = int(rng.integers(1, 300_000))
+        pk = torch.from_numpy(rng.integers(0, 50_000, n)).to(dev)
+        bk = torch.from_numpy(rng.integers(0, 50_000, 20_000)).to(dev)
+        order, lo, counts = join_match(pk, bk)
+        cases.append((order, lo, counts, ops.bucket_size(int(counts.sum()))))
+    outs = []
+    for i, (order, lo, counts, t_pad) in enumerate(cases):
+        streams[i % 2].wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(streams[i % 2]):
+            outs.append(ops.join_expand(order, lo, counts, counts, t_pad))
+    torch.cuda.synchronize(dev)
+    for (order, lo, counts, t_pad), got in zip(cases, outs):
+        want = ref.join_expand_ref(order, lo, counts, counts, t_pad)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
 
 
 def test_wrappers_count_their_launches(dev):

@@ -248,9 +248,10 @@ def test_join_expand_matches_pallas_and_jnp(n_probe, n_build, key_range, how):
     pallas = pallas_expand(j_order, j_lo, j_counts, j_counts_out, t_pad,
                            interpret=True)
     for a, b, c in zip(got, jnp_out, pallas):
-        # the plain version repeats the jnp padding, tail included
+        # the whole bucket, filler included: the plain version repeats the
+        # jnp padding, and the Pallas kernel's search lands there too
         np.testing.assert_array_equal(N(a), np.asarray(b))
-        np.testing.assert_array_equal(N(a)[:total], np.asarray(c)[:total])
+        np.testing.assert_array_equal(N(a), np.asarray(c))
 
 
 def test_join_expand_no_matches():
@@ -260,6 +261,133 @@ def test_join_expand_no_matches():
                                                            counts)), 8)
     for a, b in zip(got, want):
         np.testing.assert_array_equal(N(a), np.asarray(b))
+
+
+def _edge_runs(case):
+    """(order, lo, counts, counts_out, bucket) of the expansion edge cases."""
+    rng = np.random.default_rng(len(case))
+    n, nb = 300, 50
+    order = rng.permutation(nb).astype(np.int64)
+    lo = rng.integers(0, nb, n).astype(np.int64)
+    counts = rng.integers(0, 4, n).astype(np.int64)
+    if case == "all empty":
+        counts[:] = 0
+    elif case == "empty tail":
+        counts[-40:] = 0
+    elif case == "one long run":
+        counts[:] = 0
+        counts[123], lo[123] = 3000, 7   # past nb: the build position clips
+    counts_out = np.maximum(counts, 1) if case == "left" else counts
+    total = int(counts_out.sum())
+    bucket = total // 3 if case == "short bucket" else jops.bucket_size(total)
+    return order, lo, counts, counts_out, bucket
+
+
+@pytest.mark.parametrize("case", ["all empty", "empty tail", "one long run",
+                                  "left", "short bucket"])
+def test_join_expand_whole_bucket_edges_match_pallas_and_jnp(case):
+    """Over the whole bucket, filler included: positions past the true
+    total belong to the last run in all three versions, and a bucket
+    shorter than the true total cuts them alike."""
+    arrays = _edge_runs(case)
+    bucket = arrays[-1]
+    got = ops.join_expand(*(T(a) for a in arrays[:4]), bucket)
+    j_in = [jnp.asarray(a) for a in arrays[:4]]
+    jnp_out = jjoin._join_expand(*j_in, bucket)
+    pallas = pallas_expand(*j_in, bucket, interpret=True)
+    for a, b, c in zip(got, jnp_out, pallas):
+        assert N(a).shape == (bucket,)
+        np.testing.assert_array_equal(N(a), np.asarray(b))
+        np.testing.assert_array_equal(N(a), np.asarray(c))
+
+
+# ---------------------------------------------------------------------------
+# the kernels' launch shapes (pure host-side choices)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("v", [1, 3, 5, 15, 16, 17, 32, 33, 100])
+@pytest.mark.parametrize("g", [1, 8, 128, 4096, 12_288])
+def test_groupby_column_chunk_and_lanes(v, g):
+    from repro_torch.kernels import groupby_agg as ga
+    cw = ga.column_chunk(v, g)
+    w = ga.lane_width(cw)
+    assert 1 <= cw <= min(v, ga.MAX_CHUNK)
+    assert g * cw * 8 <= ga.SMEM_BUDGET           # the block partial fits
+    assert w in (4, 8, 16, 32) and w >= cw and (w == 4 or w < 2 * cw)
+    assert -(-v // cw) * cw >= v                  # the chunks cover V
+    if v <= 32 and g * v * 8 <= ga.SMEM_BUDGET:
+        assert cw == v                            # one chunk when it fits
+
+
+@pytest.mark.parametrize("n", [1, 2047, 2048, 31_617, 2_000_000, 5_996_021])
+@pytest.mark.parametrize("g", [1, 128, 4096])
+def test_groupby_grid_blocks(n, g):
+    from repro_torch.kernels import groupby_agg as ga
+    sms = 132
+    blocks = ga.grid_blocks(n, g, sms)
+    assert 1 <= blocks <= ga.BLOCKS_PER_SM * sms
+    rows = -(-n // blocks)                        # each block's slice
+    assert blocks * rows >= n
+    # no more blocks than slices of max(MIN_ROWS_PER_BLOCK, G) rows
+    assert blocks <= -(-n // max(ga.MIN_ROWS_PER_BLOCK, g))
+
+
+@pytest.mark.parametrize("v", [1, 3, 5, 8, 15, 16, 17, 32, 33, 100, 1000])
+@pytest.mark.parametrize("g", [1, 128, 4096])
+def test_groupby_tiles_and_shared_memory(v, g):
+    """A tile of the ring: whole row steps for every warp, starts on 16-byte
+    boundaries, about STAGE_BYTES; the block's shared memory within the
+    card's limit at every shape the wrapper takes."""
+    from repro_torch.kernels import groupby_agg as ga
+    cw = ga.column_chunk(v, g)
+    w = ga.lane_width(cw)
+    rows = ga.tile_rows(v, w)
+    step = ga.WARPS * (32 // w)
+    assert rows % 4 == 0 and (rows % step == 0 or rows < step)
+    assert 4 <= rows <= 8192 // w
+    assert rows * (v + 1) * 4 <= ga.STAGE_BYTES or rows == 4
+    part, smem = ga.smem_layout(g, cw, v, rows)
+    assert part % 16 == 0 and part >= g * cw * 8
+    assert smem == part + ga.STAGES * rows * (v + 1) * 4 <= ga.MAX_SMEM
+
+
+def test_groupby_grid_at_the_main_path_shapes():
+    from repro_torch.kernels import groupby_agg as ga
+    assert ga.grid_blocks(5_996_021, 128, 132) == 264       # Q1: 2 an SM
+    assert ga.grid_blocks(2_000_000, 128, 132) == 264       # ClickBench
+    assert ga.grid_blocks(31_617, 4096, 132) == 8           # Q3's calls
+    assert ga.lane_width(ga.column_chunk(15, 128)) == 16    # two rows a warp
+    assert ga.tile_rows(15, 16) == 512 and ga.tile_rows(5, 8) == 1024
+    # Q1's block: the ring and its partial leave room for 2 blocks an SM
+    assert 2 * (ga.smem_layout(128, 15, 15, 512)[1] + 1024) <= 233_472
+
+
+@pytest.mark.parametrize("n", [1, 2047, 2048, 2049, 968_874, 5_996_021])
+@pytest.mark.parametrize("total", [1, 8, 2 ** 16, 2 ** 20])
+def test_join_expand_grid(n, total):
+    from repro_torch.kernels import join_expand as je
+    sms = 132
+    tiles, helpers = je.expand_grid(n, total, sms)
+    assert 1 <= tiles <= n                        # never more tiles than runs
+    assert tiles * je.TILE_RUNS >= n > (tiles - 1) * je.TILE_RUNS
+    assert 1 <= helpers <= je.MAX_HELPERS_PER_SM * sms
+    assert helpers * je.SPAN_PER_HELPER >= total or helpers == je.MAX_HELPERS_PER_SM * sms
+
+
+def test_join_expand_epochs_wrap_and_zero_the_status_words():
+    """The CPU stands in for the card: a launch's epoch never repeats one
+    whose status words may be left over, and the base moves only when the
+    caller adds its blocks."""
+    from repro_torch.kernels import join_expand as je
+    ws = je._Workspace("cpu")
+    status, base, epoch = ws.next_launch(5)
+    assert (status.numel(), base, epoch) == (5, 0, 1)
+    status.fill_(7)
+    ws.base += 9
+    ws.epoch = je.EPOCHS
+    status, base, epoch = ws.next_launch(3)
+    assert (base, epoch) == (9, 1) and not bool(status.any())
 
 
 # ---------------------------------------------------------------------------

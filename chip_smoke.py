@@ -15,9 +15,11 @@ nothing of JAX or of the JAX package ``repro``, and:
    (group, column): both sum in float64 in different orders and round to
    float32, and a relative tolerance fails on centred sums near zero.
    ``groupby_sum`` is held at Q1's call, at ClickBench q2's one-group
-   call and at Q3's first 4096-group call, ``join_expand`` at both of Q5's
-   calls and at a skewed case, over the whole bucket (filler included),
-   ``topk_select`` at a
+   call and at Q3's first 4096-group call, ``hash_probe`` at Q3's second
+   call (~1% hits, the rest the absent rank -2), at a 20%-hit case of the
+   same size and at Q5's third call (every key hits), ``join_expand`` at
+   both of Q5's calls and at a skewed case, over the whole bucket (filler
+   included), ``topk_select`` at a
    main-path shape and at a 2^20-key shape with heavy ties, and
    ``decode_attention`` at the server's shape (batch 8, llama3.2-3b's
    heads, an 8192-row bf16 cache), at 32,768 rows (batch 4, and batch 1)
@@ -31,15 +33,18 @@ nothing of JAX or of the JAX package ``repro``, and:
    second must fail it.  Each kernel, its plain version
    and (for the group-by, the top-k and the decode attention) one library
    call are timed with CUDA events; the kernel's own grids also with
-   torch.profiler over the same loop (``device_ms``) and the wrapper's host
-   time with the host clock (``host_ms``);
+   torch.profiler over the same loop (``device_ms``), the wrapper's host
+   time with the host clock (``host_ms``) and, for ``hash_probe``, one call
+   with the card's L2 evicted (``evicted_ms``).  Each kernel's check runs
+   in a process of its own (``run_check``);
 4. drives the TPC-H path: SF1 data, ``SiriusEngine(use_kernels=True)`` on
    the card, Q1, Q6, Q3 and Q5 from fresh plans (a cold run and the median
    of three warm runs each).  It holds the per-query kernel hits equal to
    the reference engine's at SF1, checks that every kernel of the path
    launched over this phase, and the results against a
    ``use_kernels=False`` engine on the same card (row-exact for integer,
-   date and string columns, rtol 1e-6 for floats);
+   date and string columns, rtol 1e-6 for floats).  A profiled run records
+   the shape of every ``groupby_sum`` and ``hash_probe`` call;
 5. drives the ClickBench path: 2,000,000 rows (seed 20130701) and all 15
    queries through ``SiriusEngine.sql`` (SQL frontend and optimizer), a
    cold run and the median of three warm runs each, on both engines.  It
@@ -71,6 +76,7 @@ to ``build/chip_smoke.json``.
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -125,12 +131,13 @@ REPLACES = {
 }
 # the names of each kernel's grids, as torch.profiler reports them (and,
 # for groupby_sum, the two grids of its earlier design, so that
-# kernel_turns.py can time a checkout that has it)
+# kernel_turns.py can time a checkout that has it; hash_probe_kernel is the
+# narrow grid of hash_probe and the only grid of its earlier design)
 DEVICE_NAMES = {
     "filter_mask_counts": ("filter_mask_counts_kernel",),
     "groupby_sum": ("groupby_sum_kernel", "groupby_partial_kernel",
                     "groupby_merge_kernel"),
-    "hash_probe": ("hash_probe_kernel",),
+    "hash_probe": ("hash_probe_kernel", "hash_probe_wide_kernel"),
     "join_expand": ("join_expand_kernel",),
     "topk_select": ("topk_tile_kernel",),
     "decode_attention": ("decode_attention_kernel",),
@@ -238,6 +245,36 @@ def host_ms(fn, iters: int = 200, warmup: int = 3) -> float:
     t = time.perf_counter() - t0
     torch.cuda.synchronize()
     return t / iters * 1e3
+
+
+L2_FLUSH_BYTES = 100 * 2**20     # twice the H100's 50 MB L2
+SPIN_CYCLES = 200_000            # ~0.1 ms at the H100's 1.98 GHz
+
+
+def evicted_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Mean device time of one call of ``fn()`` with the card's L2 evicted:
+    before each call a 100 MB write, a read of the same 100 MB (so that L2
+    holds clean lines, not dirty ones the call would have to write back)
+    and a ~0.1 ms spin on the device, all outside the timed span (the spin
+    lets the host enqueue the call before the device reaches it), then CUDA
+    events around the call alone."""
+    import torch
+    flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.int32, device="cuda")
+    for _ in range(warmup):
+        fn()
+    spans = []
+    for i in range(iters):
+        flush.fill_(i)
+        flush.sum()
+        torch.cuda._sleep(SPIN_CYCLES)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        spans.append((start, end))
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in spans) / iters
 
 
 def kernel_times(name: str, fn) -> dict:
@@ -387,28 +424,38 @@ def check_groupby(rng, dev) -> dict:
     return {**q1, "other_shapes": [q2, q3]}
 
 
-def _probe_rounds(keys, slots_row) -> float:
-    """Mean probe-chain length these keys walk (for the operation count)."""
+def _probe_rounds(keys, slots_key, slots_row, max_probes: int = 32) -> float:
+    """Mean probe rounds these keys take: each chain read up to its hit, its
+    empty slot or max_probes rounds (for the operation count)."""
     import torch
     from repro_torch.kernels.ref import hash32
     cap = slots_row.shape[0]
     h0 = hash32(keys, cap - 1).long()
     done = torch.zeros(keys.shape, dtype=torch.bool, device=keys.device)
     steps = torch.zeros(keys.shape, dtype=torch.int64, device=keys.device)
-    for i in range(32):
+    for i in range(max_probes):
         steps += (~done).long()
-        done |= slots_row[(h0 + i) & (cap - 1)] == -1
+        cand = (h0 + i) & (cap - 1)
+        r = slots_row[cand]
+        done |= (r == -1) | ((r >= 0) & (slots_key[cand] == keys))
     return float(steps.double().mean())
 
 
-def check_probe(rng, dev) -> dict:
+# hash_probe's shapes on the main paths at SF1, as phase 4 records each
+# call (keys, build rows, hit share): Q3's second call (lineitem into the
+# orders that pass: 31,617 hits; the keys that miss are all the absent rank
+# -2) and Q5's third (orders into the customers of the region; every key
+# hits)
+PROBE_Q3 = (3_049_330, 154_674, 31_617 / 3_049_330)
+PROBE_Q5 = (242_080, 150_000, 1.0)
+
+
+def _probe_table(rng, n_build: int, dev):
+    """try_probe's build of ``n_build`` distinct int64 keys from 0..6 M:
+    sorted_build's ranks into build_table32 → (keys, sorted keys, slots)."""
     import torch
-    from repro_torch.kernels import ops, ref
-    n_build, n_probe = 154_674, 3_049_330            # Q3's lineitem ⋈ orders
+    from repro_torch.kernels import ops
     build_keys = rng.choice(6_000_000, n_build, replace=False).astype(np.int64)
-    hit = rng.random(n_probe) < 0.2
-    probe_keys = np.where(hit, rng.choice(build_keys, n_probe),
-                          rng.integers(0, 6_000_000, n_probe)).astype(np.int64)
     bk = torch.from_numpy(build_keys).to(dev)
     nb = ops.bucket_size(n_build)
     valid = torch.arange(nb, device=dev) < n_build
@@ -417,27 +464,67 @@ def check_probe(rng, dev) -> dict:
         torch.where(valid, ranks, -1).to(torch.int32), valid)
     if bool(dup) or not bool(placed):
         raise AssertionError("hash_probe: synthetic build is not unique/placed")
-    p32 = ops.map_probe_keys(s, torch.from_numpy(probe_keys).to(dev))
+    return build_keys, s, sk, sr
+
+
+def _probe_case(p32, sk, sr, what: str) -> dict:
+    """hash_probe on these keys against the plain version, exactly, and its
+    times: warm (``kernel_times``) and with L2 evicted (``evicted_ms``)."""
+    import torch
+    from repro_torch.kernels import ops, ref
     row, found = ops.hash_probe(p32, sk, sr)
     torch.cuda.synchronize()
     want_row, want_found = ref.hash_probe_ref(p32, sk, sr)
     bad = int((row != want_row).sum()) + int((found != want_found).sum())
     if bad:
-        raise AssertionError(f"hash_probe: {bad} entries differ from the "
-                             f"plain version")
-    cap = sk.shape[0]
-    rounds = _probe_rounds(p32, sr)
+        raise AssertionError(f"hash_probe ({what}): {bad} entries differ from "
+                             f"the plain version")
+    n, cap = p32.shape[0], sk.shape[0]
+    rounds = _probe_rounds(p32, sk, sr)
     return {
         "name": "hash_probe",
-        "shape": f"N={n_probe} keys, build {n_build} rows, capacity {cap} (Q3)",
+        "shape": f"N={n} keys, build {int((sr >= 0).sum())} rows, "
+                 f"capacity {cap} ({what})",
+        "hit_share": float(found.double().mean()),
         "max_abs_err": 0.0, "tolerance": "exact",
         "mean_probe_rounds": rounds,
         **kernel_times("hash_probe", lambda: ops.hash_probe(p32, sk, sr)),
+        "evicted_ms": evicted_ms(lambda: ops.hash_probe(p32, sk, sr)),
         "plain_ms": cuda_ms(lambda: ref.hash_probe_ref(p32, sk, sr), iters=5),
         "library_ms": None,
-        **bound(n_probe * 4 + cap * 8 + n_probe * 5,
-                n_probe * (4 + 3 * rounds)),
+        **bound(n * 4 + cap * 8 + n * 5, n * (4 + 3 * rounds)),
     }
+
+
+def check_probe(rng, dev) -> dict:
+    """The row is (a), Q3's second call as the main path makes it at SF1
+    (PROBE_Q3: ~1% hits, every other key the absent rank -2); (b), 3,049,330
+    keys into the same build size with 20% drawn from the build keys and
+    the rest from 0..6 M, and (c), Q5's third call (PROBE_Q5: every key
+    hits), go under ``other_shapes``."""
+    import torch
+    from repro_torch.kernels import ops
+    n_probe, n_build, share = PROBE_Q3
+    # (b) first, so that its inputs stay those of earlier runs
+    build_keys, s, sk, sr = _probe_table(rng, n_build, dev)
+    hit = rng.random(n_probe) < 0.2
+    probe_keys = np.where(hit, rng.choice(build_keys, n_probe),
+                          rng.integers(0, 6_000_000, n_probe)).astype(np.int64)
+    p32 = ops.map_probe_keys(s, torch.from_numpy(probe_keys).to(dev))
+    mixed = _probe_case(p32, sk, sr, "20% drawn from the build keys")
+    cases = {}
+    for what, (n_probe, n_build, share) in (
+            ("Q3's second call", PROBE_Q3), ("Q5's third call", PROBE_Q5)):
+        build_keys, s, sk, sr = _probe_table(rng, n_build, dev)
+        # keys that miss lie past the build's range: map_probe_keys makes
+        # each of them -2
+        probe_keys = np.where(rng.random(n_probe) < share,
+                              rng.choice(build_keys, n_probe),
+                              6_000_000 + rng.integers(0, 6_000_000, n_probe))
+        p32 = ops.map_probe_keys(s, torch.from_numpy(probe_keys).to(dev))
+        cases[what] = _probe_case(p32, sk, sr, what)
+    return {**cases["Q3's second call"],
+            "other_shapes": [mixed, cases["Q5's third call"]]}
 
 
 def _expand_case(order, lo, counts, what: str) -> dict:
@@ -661,6 +748,36 @@ def check_decode_attention(rng, dev) -> dict:
     return {**main, "other_shapes": [long, f32, one]}
 
 
+# phase 3's checks, in order; each runs in a process of its own
+PHASE3 = ("check_filter", "check_groupby", "check_probe", "check_expand",
+          "check_topk", "check_decode_attention")
+CHECK_CHILD = """
+import json, sys
+import numpy as np, torch
+sys.path.insert(0, {root!r})
+import chip_smoke
+check = getattr(chip_smoke, {check!r})
+print(json.dumps(check(np.random.default_rng(chip_smoke.SEED),
+                       torch.device("cuda", 0))), flush=True)
+"""
+
+
+def run_check(check: str, src: Path = ROOT / "src") -> dict:
+    """Run phase-3 check ``check`` of this script, on inputs from SEED, in a
+    process of its own that imports ``repro_torch`` from ``src``, and return
+    its row: torch.profiler, which ``device_ms`` uses, has come back without
+    a kernel's events after some 16 profiled loops in one process."""
+    env = dict(os.environ, PYTHONPATH=str(src))
+    if Path(src).resolve() != (ROOT / "src").resolve():
+        env.pop("REPRO_TORCH_BUILD_DIR", None)   # another checkout builds its own
+    out = subprocess.run(
+        [sys.executable, "-c", CHECK_CHILD.format(root=str(ROOT), check=check)],
+        env=env, capture_output=True, text=True)
+    if out.returncode != 0:
+        raise RuntimeError(f"{check} ({src}) failed:\n{out.stderr[-4000:]}")
+    return json.loads(out.stdout.splitlines()[-1])
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the TPC-H path
 # ---------------------------------------------------------------------------
@@ -687,22 +804,37 @@ def compare_tables(got: dict, want: dict):
     return worst, worst_col
 
 
-def _groupby_calls(fn) -> list:
-    """Run ``fn()`` and return the (N, V, G) of each ``groupby_sum`` call it
-    makes (groupby_sum_large calls the wrapper through ``ops``)."""
+def _kernel_calls(fn) -> tuple:
+    """Run ``fn()`` and return the shapes of the ``groupby_sum`` calls
+    ((N, V, G) each; groupby_sum_large calls the wrapper through ``ops``)
+    and of the ``hash_probe`` calls it makes: keys, build rows, slots, hits,
+    the share of the most common key and the mean probe rounds."""
+    import torch
     from repro_torch.kernels import ops
-    calls, wrapped = [], ops.groupby_sum
+    agg, probe = [], []
+    groupby_sum, hash_probe = ops.groupby_sum, ops.hash_probe
 
-    def record(gids, values, n_groups):
-        calls.append(list(values.shape) + [int(n_groups)])
-        return wrapped(gids, values, n_groups)
+    def record_agg(gids, values, n_groups):
+        agg.append(list(values.shape) + [int(n_groups)])
+        return groupby_sum(gids, values, n_groups)
 
-    ops.groupby_sum = record
+    def record_probe(keys, slots_key, slots_row, *args, **kwargs):
+        row, found = hash_probe(keys, slots_key, slots_row, *args, **kwargs)
+        n = keys.shape[0]
+        top = int(torch.unique(keys, return_counts=True)[1].max()) if n else 0
+        probe.append({"keys": n, "build_rows": int((slots_row >= 0).sum()),
+                      "slots": slots_row.shape[0], "hits": int(found.sum()),
+                      "top_key_share": top / max(n, 1),
+                      "mean_probe_rounds": _probe_rounds(keys, slots_key,
+                                                         slots_row)})
+        return row, found
+
+    ops.groupby_sum, ops.hash_probe = record_agg, record_probe
     try:
         fn()
     finally:
-        ops.groupby_sum = wrapped
-    return calls
+        ops.groupby_sum, ops.hash_probe = groupby_sum, hash_probe
+    return agg, probe
 
 
 def run_main_path() -> dict:
@@ -761,7 +893,8 @@ def run_main_path() -> dict:
     per_query = []
     for qid in ORDER:
         prof.executor.op_times.clear()
-        agg_calls = _groupby_calls(lambda: prof.execute(QUERIES[qid]()))
+        agg_calls, probe_calls = _kernel_calls(
+            lambda: prof.execute(QUERIES[qid]()))
         op_times = dict(prof.executor.op_times)
         ref_out, plain_cold = timed(plain, qid)
         plain_warm = statistics.median(timed(plain, qid)[1] for _ in range(3))
@@ -769,6 +902,7 @@ def run_main_path() -> dict:
         row = {"query": f"Q{qid}", "rows": len(next(iter(ref_out.to_host().values()))),
                "hits": results[qid]["hits"], "launches": results[qid]["launches"],
                "profiled_op_seconds": op_times, "groupby_sum_calls": agg_calls,
+               "hash_probe_calls": probe_calls,
                "cold_s": results[qid]["cold_s"], "warm_s": results[qid]["warm_s"],
                "plain_engine_cold_s": plain_cold, "plain_engine_warm_s": plain_warm,
                "max_rel_err": err, "max_rel_err_column": err_col}
@@ -1038,11 +1172,9 @@ def main() -> int:
         print(build.build_log, file=sys.stderr)
 
     dev = torch.device("cuda", 0)
-    rng = np.random.default_rng(SEED)
     kernels = []
-    for check in (check_filter, check_groupby, check_probe, check_expand,
-                  check_topk, check_decode_attention):
-        row = check(rng, dev)
+    for check in PHASE3:
+        row = run_check(check)
         emit({"phase": "kernel", **row})
         kernels.append(row)
 

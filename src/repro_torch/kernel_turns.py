@@ -9,14 +9,15 @@ runs ``chip_smoke.py``'s phase-3 checks named by ``--checks`` (``filter``,
 ``groupby``, ``probe``, ``expand``, ``topk``, ``decode``; all six by
 default) from this checkout's script: the same inputs from its seed, each
 kernel held against its own checkout's plain version, the same timers
-(``ms``, ``device_ms``, ``host_ms``, ``plain_ms``, ``library_ms``), four
-times, each in a process of its own that imports ``repro_torch`` from one
-checkout, in the order OTHER, this, this, OTHER (one process a check;
-the first of a checkout builds its kernels).  Then it times, in this checkout, the host path of
-one wrapper call (top-k, decode attention, group-by sum, join expansion)
-piece by piece: the whole call, the entry point alone (the ctypes call
-and the launch), each check and allocation, and the helpers a wrapper
-used before (a set of device types, a ``torch.cuda.Stream`` object, a
+(``ms``, ``device_ms``, ``host_ms``, ``plain_ms``, ``library_ms``, and
+``evicted_ms`` for the probe), four times, each in a process of its own
+that imports ``repro_torch`` from one checkout, in the order OTHER, this,
+this, OTHER (one process a check; the first of a checkout builds its
+kernels).  Then it times, in this checkout, the host path of one wrapper
+call (top-k, decode attention, group-by sum, join expansion, hash probe)
+piece by piece: the whole call, the entry point alone (the ctypes call and
+the launch), each check and allocation, and the helpers a wrapper used
+before (a set of device types, a ``torch.cuda.Stream`` object, a
 ``torch.cuda.device`` context, an empty scratch tensor).  ``--pieces``
 alone runs only that.  Every line is one JSON object with the card's
 ``nvidia-smi`` name and power limit.
@@ -25,7 +26,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import os
 import subprocess
 import sys
 from pathlib import Path
@@ -37,40 +37,25 @@ CHECKS = {"filter": "check_filter", "groupby": "check_groupby",
           "probe": "check_probe", "expand": "check_expand",
           "topk": "check_topk", "decode": "check_decode_attention"}
 
-CHILD = """
-import json, sys
-import numpy as np, torch
-sys.path.insert(0, {root!r})
-import chip_smoke
-check = getattr(chip_smoke, {check!r})
-print(json.dumps(check(np.random.default_rng(chip_smoke.SEED),
-                       torch.device("cuda", 0))), flush=True)
-"""
-
 
 def turns(other: Path, card: str, checks: list) -> list:
-    """The named checks of OTHER, this, this, OTHER: each check in a
-    process of its own (torch.profiler, which ``device_ms`` uses, has lost
-    a kernel's events after several profiled loops in one process)."""
+    """The named checks of OTHER, this, this, OTHER, each in a process of
+    its own (``chip_smoke.run_check``)."""
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
     lines = []
     for turn, root in enumerate((other, ROOT, ROOT, other)):
-        env = dict(os.environ, PYTHONPATH=str(root / "src"))
-        env.pop("REPRO_TORCH_BUILD_DIR", None)   # each checkout builds its own
         for check in checks:
-            child = CHILD.format(root=str(ROOT), check=CHECKS[check])
-            out = subprocess.run([sys.executable, "-c", child],
-                                 env=env, capture_output=True, text=True)
-            if out.returncode != 0:
-                raise RuntimeError(f"turn {turn} ({root}), {check} failed:\n"
-                                   f"{out.stderr[-4000:]}")
             lines.append({"turn": turn, "checkout": str(root), "card": card,
-                          **json.loads(out.stdout.splitlines()[-1])})
+                          **chip_smoke.run_check(CHECKS[check], root / "src")})
     return lines
 
 
 def pieces(card: str) -> list:
-    """Host ms of one call of each piece of the two wrappers' host paths, at
-    ClickBench's top-k call (433 keys, k=10) and the server's decode call."""
+    """Host ms of one call of each piece of the wrappers' host paths, at
+    ClickBench's top-k call (433 keys, k=10), the server's decode call,
+    small group-by and join calls and hash_probe's calls at 10,000 keys and
+    at Q3's second call."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -78,6 +63,7 @@ def pieces(card: str) -> list:
     import chip_smoke
     from .kernels import build, ops
     from .kernels import groupby_agg as ga
+    from .kernels import hash_probe as hp
     from .kernels import join_expand as je
     from .kernels.decode_attention import _workspace, split_count
     from .relational.join import join_match
@@ -137,7 +123,43 @@ def pieces(card: str) -> list:
         with torch.cuda.device(dev):
             pass
 
+    # hash_probe at Q5's second call at SF1 (10,000 keys into a 5-row
+    # build) and at Q3's second (chip_smoke.PROBE_Q3)
+    probe_in = {}
+    for what, (n_probe, n_build, share) in (
+            ("10,000 keys", (10_000, 5, 0.2)),
+            ("Q3's second call", chip_smoke.PROBE_Q3)):
+        build_keys, s, sk, sr = chip_smoke._probe_table(rng, n_build, dev)
+        pk = np.where(rng.random(n_probe) < share, rng.choice(build_keys, n_probe),
+                      6_000_000 + rng.integers(0, 6_000_000, n_probe))
+        probe_in[what] = (ops.map_probe_keys(s, torch.from_numpy(pk).to(dev)), sk, sr)
+    probe_entry = build._entries["hash_probe"]
+    p32, sk, sr = probe_in["10,000 keys"]
+    prow, pfound = ops.hash_probe(p32, sk, sr)
+
+    def probe_checks():
+        build.on_cpu(p32, sk, sr)
+        for t in (p32, sk, sr):
+            build.require(t, "t", torch.int32, 1)
+
     cases = {
+        **{f"hash_probe: the wrapper ({what})":
+           (lambda a: lambda: ops.hash_probe(*a))(args)
+           for what, args in probe_in.items()},
+        "hash_probe: the entry point alone": lambda: probe_entry(
+            p32.data_ptr(), sk.data_ptr(), sr.data_ptr(), prow.data_ptr(),
+            pfound.data_ptr(), 10_000, sk.shape[0], 32, stream),
+        "hash_probe: build.on_cpu and three build.require": probe_checks,
+        "hash_probe: build.on_cpu and the fused check": lambda: (
+            build.on_cpu(p32, sk, sr), hp._require_int32_vectors(p32, sk, sr)),
+        "hash_probe: its two outputs (torch.empty)": lambda: (
+            torch.empty(10_000, dtype=torch.int32, device=dev),
+            torch.empty(10_000, dtype=torch.bool, device=dev)),
+        "hash_probe: one allocation, two views": lambda: (
+            lambda b: (b[:40_000].view(torch.int32), b[40_000:].view(torch.bool)))(
+            torch.empty(50_000, dtype=torch.uint8, device=dev)),
+        "hash_probe: get_device and build.current_stream": lambda: (
+            build.current_stream(p32.get_device())),
         "topk_select: the wrapper": lambda: ops.topk_select(keys, 10),
         "topk_select: torch.topk": lambda: torch.topk(keys, 10, largest=False),
         "topk_select: the entry point alone": lambda: topk_entry(

@@ -48,19 +48,35 @@ def build_table32(keys32: torch.Tensor, valid: Optional[torch.Tensor] = None,
     return slots_key.to(torch.int32), slots_row, placed.all()
 
 
-def hash_probe(probe_keys: torch.Tensor, slots_key: torch.Tensor,
-               slots_row: torch.Tensor, max_probes: int = 32):
-    """Probe int32 keys against the table → (row int32, -1 where absent; found)."""
-    if build.on_cpu(probe_keys, slots_key, slots_row):
-        return hash_probe_ref(probe_keys, slots_key, slots_row, max_probes)
+def _require_int32_vectors(probe_keys, slots_key, slots_row) -> None:
+    """Raise unless the three are contiguous 1-d int32 tensors: one test of
+    all three, and build.require's message for the one at fault."""
+    if (probe_keys.dtype == slots_key.dtype == slots_row.dtype == torch.int32
+            and probe_keys.dim() == slots_key.dim() == slots_row.dim() == 1
+            and probe_keys.is_contiguous() and slots_key.is_contiguous()
+            and slots_row.is_contiguous()):
+        return
     build.require(probe_keys, "probe_keys", torch.int32, 1)
     build.require(slots_key, "slots_key", torch.int32, 1)
     build.require(slots_row, "slots_row", torch.int32, 1)
+
+
+def hash_probe(probe_keys: torch.Tensor, slots_key: torch.Tensor,
+               slots_row: torch.Tensor, max_probes: int = 32):
+    """Probe int32 keys against the table → (row int32, -1 where absent; found).
+
+    ``probe_keys`` may be a view at any offset: the kernel reads keys that
+    do not start on a 16-byte boundary 4 bytes at a time."""
+    if build.on_cpu(probe_keys, slots_key, slots_row):
+        return hash_probe_ref(probe_keys, slots_key, slots_row, max_probes)
+    _require_int32_vectors(probe_keys, slots_key, slots_row)
     cap = slots_key.shape[0]
     if cap < 1 or cap & (cap - 1) or slots_row.shape[0] != cap:
         raise ValueError(f"table capacity must be one power of two, got "
                          f"{cap} keys and {slots_row.shape[0]} rows")
     n = probe_keys.shape[0]
+    # two allocations: one buffer with an int32 and a bool view of it took
+    # longer on the host (kernel_turns.py's pieces)
     row = torch.empty(n, dtype=torch.int32, device=probe_keys.device)
     found = torch.empty(n, dtype=torch.bool, device=probe_keys.device)
     if n == 0:

@@ -67,23 +67,87 @@ def test_groupby_sum_large_on_card(dev):
     assert bool(((got - want).abs() <= 1e-6 * scale + 1e-30).all())
 
 
-@pytest.mark.parametrize("n_build,n_probe", [(1, 5), (30_000, 800_000)])
-def test_hash_probe_on_card(dev, n_build, n_probe):
-    rng = np.random.default_rng(n_build)
-    keys = torch.from_numpy(rng.choice(10 * n_build, n_build, replace=False)
-                            .astype(np.int64)).to(dev)
-    nb = ops.bucket_size(n_build)
-    valid = torch.arange(nb, device=dev) < n_build
-    s, _, ranks, _, _ = ops.sorted_build(ops.pad_rows(keys, nb), valid)
-    sk, sr, placed = ops.build_table32(torch.where(valid, ranks, -1).to(torch.int32),
-                                       valid)
+def _ranked_table(dev, build_keys):
+    """try_probe's build of int64 ``build_keys``: sorted_build's ranks into
+    build_table32 → (sorted keys, slots_key, slots_row)."""
+    n = len(build_keys)
+    nb = ops.bucket_size(n)
+    valid = torch.arange(nb, device=dev) < n
+    s, _, ranks, _, _ = ops.sorted_build(
+        ops.pad_rows(torch.from_numpy(build_keys).to(dev), nb), valid)
+    sk, sr, placed = ops.build_table32(
+        torch.where(valid, ranks, -1).to(torch.int32), valid)
     assert bool(placed)
-    probe = torch.from_numpy(rng.integers(-5, 10 * n_build + 5, n_probe)).to(dev)
-    p32 = ops.map_probe_keys(s, probe)
-    row, found = ops.hash_probe(p32, sk, sr)
-    want_row, want_found = ref.hash_probe_ref(p32, sk, sr)
+    return s, sk, sr
+
+
+def _colliding_keys(mask, count):
+    """``2 * count`` int32 keys whose first slot under ``mask`` is slot 3."""
+    cand = torch.arange(0, 2_000_000, dtype=torch.int32)
+    return cand[ref.hash32(cand, mask) == 3][:2 * count].numpy()
+
+
+def _probe_inputs(kind, n_build, n_probe, arg, dev):
+    """One case's int32 probe keys, table, max_probes, and the (probe,
+    build) keys whose np.isin the flags must equal (None where chains are
+    cut short)."""
+    rng = np.random.default_rng(n_build + n_probe + arg)
+    if kind == "negative keys":   # raw int32 keys, the build's own
+        keys = np.unique(np.concatenate([
+            rng.integers(-2**31, 0, n_build), [-1, -2, -2**31]])).astype(np.int32)
+        probe = np.where(rng.random(n_probe) < 0.5, rng.choice(keys, n_probe),
+                         rng.integers(-2**31, 0, n_probe)).astype(np.int32)
+        sk, sr, placed = ops.build_table32(torch.from_numpy(keys).to(dev))
+        assert bool(placed)
+        return torch.from_numpy(probe).to(dev), sk, sr, 32, (probe, keys)
+    if kind == "long chains":     # 2 * n_build keys on one chain's slot
+        collide = _colliding_keys(ops.bucket_size(2 * n_build) - 1, n_build)
+        keys = collide[:n_build]  # a chain of n_build slots from slot 3
+        sk, sr, placed = ops.build_table32(torch.from_numpy(keys).to(dev),
+                                           max_probes=2 * n_build)
+        assert bool(placed)
+        probe = np.concatenate([collide, rng.integers(0, 2**31 - 1, n_probe)]
+                               ).astype(np.int32)
+        return torch.from_numpy(probe).to(dev), sk, sr, arg, None
+    keys = rng.choice(10 * n_build, n_build, replace=False).astype(np.int64)
+    s, sk, sr = _ranked_table(dev, keys)
+    if kind == "all absent":      # ranks past the build: varied slots
+        probe = rng.integers(n_build, 2**31 - 1, n_probe).astype(np.int32)
+        return torch.from_numpy(probe).to(dev), sk, sr, 32, (probe, np.arange(n_build))
+    if kind == "all hits":
+        probe = rng.choice(keys, n_probe)
+    elif kind == "hot key":       # one build key for 99.5% of the keys
+        probe = np.where(rng.random(n_probe) < 0.995, keys[7],
+                         rng.integers(-5, 10 * n_build + 5, n_probe))
+    else:                         # ~10% hits; "offset": a view at arg
+        probe = rng.integers(-5, 10 * n_build + 5, n_probe + arg)
+    p32 = ops.map_probe_keys(s, torch.from_numpy(probe).to(dev))
+    if kind == "offset":
+        p32, probe = p32[arg:], probe[arg:]
+        assert p32.data_ptr() % 16 != 0
+    return p32, sk, sr, 32, (probe, keys)
+
+
+@pytest.mark.parametrize("kind,n_build,n_probe,arg", [
+    ("uniform", 1, 5, 0), ("uniform", 30_000, 800_000, 0),
+    *[("uniform", 5_000, n, 0) for n in (1, 7, 8, 9, 1023, 1025, 2**20 + 3)],
+    ("offset", 5_000, 70_001, 1), ("offset", 5_000, 70_001, 3),
+    ("all hits", 150_000, 300_000, 0), ("all absent", 150_000, 300_000, 0),
+    ("hot key", 150_000, 500_000, 0), ("negative keys", 20_000, 200_000, 0),
+    ("long chains", 40, 1_000, 1), ("long chains", 40, 1_000, 2),
+    ("long chains", 40, 1_000, 32)])
+def test_hash_probe_on_card(dev, kind, n_build, n_probe, arg):
+    """Exactly the plain version: ragged lengths, key views that do not
+    start on 16 bytes, all hits, all absent, one hot key, negative keys,
+    and chains cut by max_probes."""
+    p32, sk, sr, max_probes, isin = _probe_inputs(kind, n_build, n_probe, arg, dev)
+    row, found = ops.hash_probe(p32, sk, sr, max_probes)
+    want_row, want_found = ref.hash_probe_ref(p32, sk, sr, max_probes)
     assert torch.equal(row, want_row) and torch.equal(found, want_found)
-    assert torch.equal(found.cpu(), torch.isin(probe, keys).cpu())
+    if isin is not None:
+        assert np.array_equal(found.cpu().numpy(), np.isin(*isin))
+    else:   # the chain of n_build keys is longer than max_probes
+        assert int(found.sum()) == min(max_probes, n_build)
 
 
 @pytest.mark.parametrize("n_probe,n_build,key_range,how", [

@@ -204,23 +204,86 @@ def test_build_table32_declines_at_q5_sf1_build_size(n, placed):
         np.testing.assert_array_equal(N(a), np.asarray(b))
 
 
-@pytest.mark.parametrize("n_build,n_probe", [(1, 10), (100, 1000), (2000, 5000)])
-def test_hash_probe_matches_pallas_and_ref(n_build, n_probe):
-    rng = np.random.default_rng(n_build + n_probe)
-    keys = rng.choice(5 * n_build + 5, n_build, replace=False).astype(np.int64)
-    probe = rng.integers(-3, 5 * n_build + 8, n_probe).astype(np.int64)
-    t_out, j_out, t_tab, j_tab = _tables(keys)
-    p32 = ops.map_probe_keys(t_out[0], T(probe))
-    jp32 = jops.map_probe_keys(j_out[0], jnp.asarray(probe))
-    np.testing.assert_array_equal(N(p32), np.asarray(jp32))
-    row, found = ops.hash_probe(p32, t_tab[0], t_tab[1])
-    p_row, p_found = pallas_probe(jp32, j_tab[0], j_tab[1], interpret=True)
-    r_row, r_found = jref.hash_probe_ref(jp32, j_tab[0], j_tab[1])
+def _colliding_table(n: int):
+    """``2 n`` int32 keys whose first slot is slot 3 of a table for ``n``
+    rows, and the table of the first ``n`` in both packages (one chain of
+    n slots; built with 2 n rounds so that every key is placed)."""
+    mask = ops.bucket_size(2 * n) - 1
+    cand = np.arange(2_000_000, dtype=np.int32)
+    keys = cand[N(ref.hash32(T(cand), mask)) == 3][:2 * n]
+    t_tab = ops.build_table32(T(keys[:n]), max_probes=2 * n)
+    j_tab = jops.build_table32(jnp.asarray(keys[:n]), max_probes=2 * n)
+    for a, b in zip(t_tab, j_tab):
+        np.testing.assert_array_equal(N(a), np.asarray(b))
+    assert bool(t_tab[2]) and t_tab[0].shape[0] == mask + 1
+    return keys, t_tab, j_tab
+
+
+@pytest.mark.parametrize("n_build,n_probe,mix,max_probes", [
+    pytest.param(1, 10, "uniform", 32, id="1-10"),
+    pytest.param(100, 1000, "uniform", 32, id="100-1000"),
+    pytest.param(2000, 5000, "uniform", 32, id="2000-5000"),
+    pytest.param(3000, 30_000, "q3-like", 32, id="q3-like"),
+    pytest.param(40, 300, "colliding", 1, id="colliding-max1"),
+    pytest.param(40, 300, "colliding", 2, id="colliding-max2"),
+    pytest.param(40, 300, "colliding", 32, id="colliding-max32")])
+def test_hash_probe_matches_pallas_and_ref(n_build, n_probe, mix, max_probes):
+    """The port's plain version, the Pallas kernel (interpret mode) and the
+    jnp ref agree: keys around the build's range; a mix like Q3's second
+    call at SF1 (~1% hits, every other key the absent rank -2); and one
+    chain of 40 colliding keys cut short by max_probes 1, 2 and 32."""
+    rng = np.random.default_rng(n_build + n_probe + max_probes)
+    if mix == "colliding":
+        keys, t_tab, j_tab = _colliding_table(n_build)
+        # the n_build keys in the table, n_build more on its chain, others
+        p32 = np.concatenate([keys, rng.integers(0, 2**31 - 1, n_probe)]
+                             ).astype(np.int32)
+        jp32 = jnp.asarray(p32)
+        p32 = T(p32)
+    else:
+        keys = rng.choice(5 * n_build + 5, n_build, replace=False).astype(np.int64)
+        if mix == "q3-like":
+            probe = np.where(rng.random(n_probe) < 0.01, rng.choice(keys, n_probe),
+                             5 * n_build + 5 + rng.integers(0, 10**6, n_probe))
+        else:
+            probe = rng.integers(-3, 5 * n_build + 8, n_probe).astype(np.int64)
+        t_out, j_out, t_tab, j_tab = _tables(keys)
+        p32 = ops.map_probe_keys(t_out[0], T(probe))
+        jp32 = jops.map_probe_keys(j_out[0], jnp.asarray(probe))
+        np.testing.assert_array_equal(N(p32), np.asarray(jp32))
+    row, found = ops.hash_probe(p32, t_tab[0], t_tab[1], max_probes)
+    p_row, p_found = pallas_probe(jp32, j_tab[0], j_tab[1], max_probes,
+                                  interpret=True)
+    r_row, r_found = jref.hash_probe_ref(jp32, j_tab[0], j_tab[1], max_probes)
     for got, want in ((row, p_row), (found, p_found), (row, r_row),
                       (found, r_found)):
         np.testing.assert_array_equal(N(got), np.asarray(want))
-    # and the probe finds exactly the keys that are in the build
-    np.testing.assert_array_equal(N(found), np.isin(probe, keys))
+    if mix == "colliding":
+        # the key placed k-th sits k slots down the chain: found iff k <
+        # max_probes
+        assert int(found.sum()) == min(max_probes, n_build)
+    else:
+        # the probe finds exactly the keys that are in the build
+        np.testing.assert_array_equal(N(found), np.isin(probe, keys))
+        if mix == "q3-like":
+            assert 0.005 < float(found.double().mean()) < 0.02
+            assert float((p32 == -2).double().mean()) > 0.98
+
+
+@pytest.mark.parametrize("fault", ["dtype", "strided"])
+@pytest.mark.parametrize("at", [0, 1, 2])
+def test_hash_probe_checks_name_the_tensor_at_fault(fault, at):
+    """The wrapper's one test of its three inputs raises build.require's
+    message for the tensor at fault, and passes good inputs."""
+    from repro_torch.kernels.hash_probe import _require_int32_vectors
+    good = [torch.zeros(8, dtype=torch.int32) for _ in range(3)]
+    _require_int32_vectors(*good)
+    bad = list(good)
+    bad[at] = (torch.zeros(8, dtype=torch.int64) if fault == "dtype"
+               else torch.zeros(16, dtype=torch.int32)[::2])
+    name = ("probe_keys", "slots_key", "slots_row")[at]
+    with pytest.raises(ValueError, match=name):
+        _require_int32_vectors(*bad)
 
 
 # ---------------------------------------------------------------------------

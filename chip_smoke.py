@@ -37,17 +37,34 @@ nothing of JAX or of the JAX package ``repro``, and:
    time with the host clock (``host_ms``) and, for ``hash_probe``, one call
    with the card's L2 evicted (``evicted_ms``).  Each kernel's check runs
    in a process of its own (``run_check``);
-4. drives the TPC-H path: SF1 data, ``SiriusEngine(use_kernels=True)`` on
-   the card, Q1, Q6, Q3 and Q5 from fresh plans (a cold run and the median
-   of three warm runs each).  It holds the per-query kernel hits equal to
+4. drives the TPC-H path: SF1 data, ``SiriusEngine(use_kernels=True,
+   compile_pipelines=False)`` (the eager path) on the card, Q1, Q6, Q3 and
+   Q5 from fresh plans (a cold run and the median of three warm runs each).  It holds the per-query kernel hits equal to
    the reference engine's at SF1, checks that every kernel of the path
    launched over this phase, and the results against a
    ``use_kernels=False`` engine on the same card (row-exact for integer,
    date and string columns, rtol 1e-6 for floats).  A profiled run records
    the shape of every ``groupby_sum`` and ``hash_probe`` call;
+4b. drives the reference's default path over all 22 TPC-H queries on
+   phase 4's SF1 tensors (registered again, not copied), on three engines:
+   ``SiriusEngine(use_kernels=True)`` and ``SiriusEngine()`` (the default
+   ``compile_pipelines=True``: fused regions, the executable-plan cache)
+   and the eager ``compile_pipelines=False`` engine as the yardstick.  Each
+   hand-built plan cold once and warm three times, every result held
+   against the yardstick's as in phase 4; the kernel hits of each cold run
+   equal to ``EXPECTED_HITS_SF1``; every warm run a plan-cache replay with
+   one barrier and no scalar sync, by one CUDA graph on ``SiriusEngine()``
+   for the queries in ``EXPECTED_GRAPH_QIDS`` and by the closure loop
+   otherwise; no device→host copy inside a pipeline on a warm run; the four
+   TPC-H kernels launched in the phase.  Then the 22 SQL texts through
+   ``eng.sql`` on both compiled engines: the second call must skip the
+   parser and equal the hand-built result.  It prints one line per query
+   (cold and warm seconds per engine, replay mode, hits, launches) and one
+   with the memory the graph engine's entries hold;
 5. drives the ClickBench path: 2,000,000 rows (seed 20130701) and all 15
    queries through ``SiriusEngine.sql`` (SQL frontend and optimizer), a
-   cold run and the median of three warm runs each, on both engines.  It
+   cold run and the median of three warm runs each, on both engines (the
+   eager path, as phase 4).  It
    holds the per-query kernel hits equal to the reference engine's at this
    scale, checks that ``groupby_sum`` and ``topk_select`` launched in this
    phase, compares the results as in phase 4, and counts device→host copies
@@ -110,6 +127,35 @@ EXPECTED_HITS = {
     5: _hits(filter=1, probe=3, agg=1, expand=2),
 }
 ORDER = (1, 6, 3, 5)
+
+# phase 4b, the reference's default path over the 22 queries at SF1: the
+# kernel hits per query of ``SiriusEngine(use_kernels=True)`` with its
+# default compile_pipelines=True, on its cold run (the port's own reading
+# on the card, PERF.md §5.  They differ from the reference's at SF0.01
+# (tests/test_torch_tpch_compiled.py) where the data change the routing:
+# at SF1 build_table32 declines a probe table or more in Q4, Q5, Q8, Q9,
+# Q12, Q14, Q17, Q19, Q21 and Q22, whose joins then run eagerly (the inner
+# ones through join_expand), and Q19's group-by and Q21's top-k reach
+# their kernels), and the queries whose warm replay on
+# ``SiriusEngine()`` must be one CUDA graph (the reference compiles the
+# replay of every one of the 22 where no kernel backend is attached;
+# tests/test_torch_tpch_compiled.py pins this set to the reference's)
+EXPECTED_HITS_SF1 = {
+    1: _hits(filter=1, agg=1), 2: _hits(probe=7, agg=1),
+    3: _hits(filter=2, probe=2, agg=1), 4: _hits(filter=1, agg=1),
+    5: _hits(filter=1, probe=3, agg=1, expand=2), 6: _hits(filter=1, agg=1),
+    7: _hits(filter=1, probe=5, agg=1),
+    8: _hits(filter=1, probe=6, agg=1, expand=1),
+    9: _hits(probe=3, agg=1, expand=2), 10: _hits(filter=1, probe=3),
+    11: _hits(probe=4, agg=2), 12: _hits(agg=1, expand=1),
+    13: _hits(agg=2, expand=1), 14: _hits(filter=1, agg=1, expand=1),
+    15: _hits(filter=2, probe=1, agg=3), 16: _hits(probe=2),
+    17: _hits(probe=1, agg=2, expand=1), 18: _hits(probe=3, agg=1),
+    19: _hits(agg=1, expand=1), 20: _hits(filter=1, probe=3, agg=1, expand=1),
+    21: _hits(probe=3, agg=1, topk=1), 22: _hits(agg=2),
+}
+EXPECTED_GRAPH_QIDS = frozenset(range(1, 23))
+WARM_RUNS = 3
 
 # ClickBench: rows of the hits sample and its seed; the kernel hits per
 # query on the reference engine at that scale (top-k declines on q12 and
@@ -848,11 +894,12 @@ def run_main_path() -> dict:
     db = generate(SF, seed=SEED)
     t_gen = time.perf_counter() - t0
     t0 = time.perf_counter()
-    eng = SiriusEngine(use_kernels=True)
+    # phase 4 measures the uncached (eager) path; phase 4b the default one
+    eng = SiriusEngine(use_kernels=True, compile_pipelines=False)
     load_into_engine(eng, db)
     torch.cuda.synchronize()
     t_load = time.perf_counter() - t0
-    plain = SiriusEngine(use_kernels=False)
+    plain = SiriusEngine(use_kernels=False, compile_pipelines=False)
     for name in db:                      # the same device tensors, no copy
         plain.register(name, eng.buffers.get(name))
     emit({"phase": "load", "sf": SF, "generate_s": t_gen, "load_s": t_load,
@@ -908,8 +955,167 @@ def run_main_path() -> dict:
                "max_rel_err": err, "max_rel_err_column": err_col}
         emit({"phase": "query", **row})
         per_query.append(row)
+    tables = {name: eng.buffers.get(name) for name in db}
     return {"launches": launches, "queries": per_query,
-            "generate_s": t_gen, "load_s": t_load}
+            "generate_s": t_gen, "load_s": t_load}, tables
+
+
+# ---------------------------------------------------------------------------
+# phase 4b: the default path (fused regions, plan cache, CUDA graph replays)
+# ---------------------------------------------------------------------------
+
+
+def run_compiled_path(tables: dict) -> dict:
+    """All 22 TPC-H queries at SF1 on the tables phase 4 loaded (registered
+    again: the same device tensors), on three engines: the default path with
+    the kernels (``use_kernels=True``: the closure loop replays), the
+    default path without them (``SiriusEngine()``: warm runs replay one
+    CUDA graph) and the eager ``compile_pipelines=False`` engine as the
+    yardstick.  Hand-built plans cold once and warm ``WARM_RUNS`` times,
+    each result held against the yardstick's; then the 22 SQL texts
+    through ``eng.sql``, whose second call must skip the parser."""
+    import torch
+    from repro_torch import sql as port_sql
+    from repro_torch.core import instrument
+    from repro_torch.core.executor import SiriusEngine
+    from repro_torch.data.tpch_queries import QUERIES, SQL_QUERIES
+    from repro_torch.kernels import build
+
+    def engine(**kw):
+        e = SiriusEngine(**kw)
+        for name, t in tables.items():
+            e.register(name, t)
+        return e
+
+    yard = engine(use_kernels=False, compile_pipelines=False)
+    engines = {"kernels": engine(use_kernels=True),
+               "graph": engine(use_kernels=False)}
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    reserved0 = torch.cuda.memory_reserved()
+
+    def timed(e, qid):
+        t = time.perf_counter()
+        out = e.execute(QUERIES[qid]())
+        return out, time.perf_counter() - t
+
+    def warm_run(e, qid):
+        syncs = instrument.scalar_syncs.value
+        barriers = instrument.sync_barriers.value
+        out, s = timed(e, qid)
+        ex = e.executor
+        if not ex.last_plan_cache_hit:
+            raise AssertionError(f"Q{qid}: a warm run missed the plan cache")
+        got = (instrument.scalar_syncs.value - syncs,
+               instrument.sync_barriers.value - barriers)
+        if got != (0, 1):
+            raise AssertionError(f"Q{qid}: a warm run took {got[0]} scalar "
+                                 f"syncs and {got[1]} barriers, not 0 and 1")
+        return out, s, ex.last_replay_mode
+
+    build.reset_launch_counts()
+    rows = []
+    for qid in sorted(QUERIES):
+        want, yard_cold = timed(yard, qid)
+        want = want.to_host()
+        yard_warm = statistics.median(timed(yard, qid)[1]
+                                      for _ in range(WARM_RUNS))
+        row = {"query": f"Q{qid}", "rows": len(next(iter(want.values()))),
+               "eager_cold_s": yard_cold, "eager_warm_s": yard_warm}
+        for label, e in engines.items():
+            launched = build.launch_counts()
+            before = e.backend.hit_counts() if e.backend else None
+            out, cold = timed(e, qid)
+            if before is not None:
+                after = e.backend.hit_counts()
+                hits = {k: after[k] - before[k] for k in after}
+            err, _ = compare_tables(out.to_host(), want)
+            warms, modes = [], set()
+            for _ in range(WARM_RUNS):
+                out, s, mode = warm_run(e, qid)
+                compare_tables(out.to_host(), want)
+                warms.append(s)
+                modes.add(mode)
+            with instrument.track_transfers() as counter:
+                warm_run(e, qid)
+            if counter.in_pipeline:
+                raise AssertionError(f"Q{qid} ({label}): {counter.in_pipeline}"
+                                     f" device-to-host copies in pipelines")
+            (mode,) = modes
+            row[label] = {"cold_s": cold, "warm_s": statistics.median(warms),
+                          "replay": mode, "max_rel_err": err,
+                          "launches": {k: n - launched[k] for k, n in
+                                       build.launch_counts().items()
+                                       if n - launched[k]}}
+            if before is not None:
+                row[label]["hits"] = hits   # the cold run's
+        hits = row["kernels"]["hits"]
+        if hits != EXPECTED_HITS_SF1[qid]:
+            raise AssertionError(f"Q{qid}: kernel hits {hits}, expected "
+                                 f"{EXPECTED_HITS_SF1[qid]}")
+        for label in engines:
+            want_mode = ("graph" if label == "graph" and qid in
+                         EXPECTED_GRAPH_QIDS else "closure")
+            if row[label]["replay"] != want_mode:
+                err = engines[label].executor.capture_errors
+                raise AssertionError(
+                    f"Q{qid} ({label}): replayed by {row[label]['replay']}, "
+                    f"expected {want_mode}; capture errors: {err}")
+        emit({"phase": "compiled_query", **row})
+        rows.append(row)
+    launches = build.launch_counts()
+    missing = [k for k in PATH_KERNELS["tpch"] if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the compiled TPC-H "
+                             f"path: {missing}")
+
+    # SQL text: the second call of each query skips lexer, parser, binder
+    # and optimizer and replays the entry the first call recorded
+    parses = []
+    run_sql = port_sql.run_sql
+
+    def counting_run_sql(*args, **kwargs):
+        parses.append(1)
+        return run_sql(*args, **kwargs)
+
+    port_sql.run_sql = counting_run_sql
+    try:
+        for qid in sorted(SQL_QUERIES):
+            want = yard.execute(QUERIES[qid]()).to_host()
+            for label, e in engines.items():
+                n0 = len(parses)
+                compare_tables(e.sql(SQL_QUERIES[qid]).to_host(), want)
+                compare_tables(e.sql(SQL_QUERIES[qid]).to_host(), want)
+                if len(parses) - n0 != 1 or not e.executor.last_plan_cache_hit:
+                    raise AssertionError(f"SQL Q{qid} ({label}): the second "
+                                         f"call did not take the text cache")
+    finally:
+        port_sql.run_sql = run_sql
+
+    # what the graph engine's entries hold: the device memory that
+    # dropping them gives back (their graphs' pool, the build tables their
+    # fused probes captured, the results their replays skip), with the
+    # allocator's free cached blocks released on both sides
+    graph_ex = engines["graph"].executor
+    torch.cuda.synchronize()
+    reserved1 = torch.cuda.memory_reserved()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_reserved()
+    entries = len(graph_ex.plan_cache)
+    graph_ex.plan_cache.clear()
+    import gc
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    reserved2 = torch.cuda.memory_reserved()
+    memory = {"reserved_before_bytes": reserved0,
+              "reserved_after_bytes": reserved1,
+              "graph_engine_entries": entries,
+              "graph_engine_entries_bytes": held - reserved2,
+              "capture_failures": graph_ex.capture_failures,
+              "capture_errors": graph_ex.capture_errors}
+    emit({"phase": "compiled_memory", **memory})
+    return {"launches": launches, "queries": rows, "memory": memory}
 
 
 # ---------------------------------------------------------------------------
@@ -928,12 +1134,12 @@ def run_clickbench() -> dict:
     db = cb.generate(CB_ROWS, seed=CB_SEED)
     t_gen = time.perf_counter() - t0
     t0 = time.perf_counter()
-    eng = SiriusEngine(use_kernels=True)
+    eng = SiriusEngine(use_kernels=True, compile_pipelines=False)
     cb.load_into_engine(eng, db)
     torch.cuda.synchronize()
     t_load = time.perf_counter() - t0
     hits_table = eng.buffers.get("hits")
-    plain = SiriusEngine(use_kernels=False)
+    plain = SiriusEngine(use_kernels=False, compile_pipelines=False)
     plain.register("hits", hits_table)   # the same device tensors, no copy
     cat = cb.clickbench_catalog(CB_ROWS)
     emit({"phase": "clickbench_load", "rows": hits_table.num_rows,
@@ -1178,10 +1384,13 @@ def main() -> int:
         emit({"phase": "kernel", **row})
         kernels.append(row)
 
-    report["main_path"] = run_main_path()
+    report["main_path"], tables = run_main_path()
+    report["compiled_path"] = run_compiled_path(tables)
+    del tables
     report["clickbench"] = run_clickbench()
     report["lm_serve"] = run_lm_serve(card, dev)
     by_path = {"tpch": report["main_path"]["launches"],
+               "tpch_compiled": report["compiled_path"]["launches"],
                "clickbench": report["clickbench"]["launches"],
                "lm_serve": report["lm_serve"]["launches"]}
     line = []

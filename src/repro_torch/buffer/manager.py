@@ -42,12 +42,15 @@ class _CacheEntry:
 
 
 class BufferManager:
-    def __init__(self, caching_bytes: int = 8 << 30, processing_bytes: int = 8 << 30,
-                 device="cpu"):
+    def __init__(self, caching_bytes: int, processing_bytes: int, device):
         self.device = torch.device(device)
         self.caching_capacity = caching_bytes
         self.processing_capacity = processing_bytes
         self._cache: Dict[str, _CacheEntry] = {}
+        # per-table write generation: bumped on every (re-)cache so the
+        # executable-plan cache can detect that a recorded plan read data
+        # that has since been replaced (see core.plan_cache)
+        self.table_epochs: Dict[str, int] = {}
         self.caching_used = 0
         self.processing_used = 0
         self.processing_peak = 0
@@ -61,7 +64,10 @@ class BufferManager:
 
     # -- caching region -----------------------------------------------------
     def cache_table(self, name: str, table: Table) -> Table:
-        """Cold-run load: deep-copy host columns into the device cache."""
+        """Cold-run load: deep-copy host columns into the device cache.
+
+        Tensors already on the engine's device are held as they are."""
+        self.table_epochs[name] = self.table_epochs.get(name, 0) + 1
         nbytes = table.nbytes
         self._make_room(nbytes)
         dev = Table({

@@ -7,38 +7,55 @@ Within a pipeline execution is **push-based**: the executor owns all state
 (build tables, partial agg inputs) and pushes morsels into stateless
 operator callables.
 
-Two modes, as the reference's ``compile_pipelines=False`` path has them:
+Execution modes, as the reference has them:
 
-* **default** — every operator runs eagerly and queues its device work
-  without waiting; the query's one barrier is at the final sink;
+* **default** (``compile_pipelines=True``) — the executable-plan cache
+  (``core.plan_cache``) owns the path.  A cold run lowers the plan, fuses
+  each pipeline's Filter/Select/Project/Probe chain into mask-mode regions
+  (``core.pipeline_compiler``), runs the pipelines in topological order on
+  the calling thread and records every scalar it pulls.  A warm run
+  replays the recording: no lowering, no probe builds, no scalar syncs,
+  one barrier.  Where no kernel backend is attached, the warm replay on the
+  card is one CUDA graph, captured at record time (the reference compiles
+  it into one XLA program); elsewhere the closure loop replays it;
+* **compile_pipelines=False**, or ``morsel_rows`` — the uncached path:
+  worker threads run the pipelines (fused regions when compiling, every
+  operator eagerly otherwise) and the query's one barrier is at the final
+  sink;
 * **profile=True** (per engine) — a barrier and a timer after every
   operator, accumulated per category in ``op_times`` for the Figure-5
   breakdown.
 
-Compiled pipelines, the plan cache, ``accelerate`` and EXPLAIN ANALYZE are
-later slices of the port; ``SiriusEngine.sql`` runs SQL text through the
-frontend and optimizer.  All worker threads launch on the device's
-current stream, so the device runs their work in submission order.
+``accelerate`` and EXPLAIN ANALYZE are later slices of the port.  All
+worker threads launch on the device's current stream, so the device runs
+their work in submission order.  Unlike the reference, a warm replay that
+fails with anything but ``ReplayMismatch`` raises instead of re-running
+cold: a launch or build error is never hidden.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import queue
 import threading
 import time
+import weakref
 from collections import defaultdict
 from typing import Dict, List, Optional
 
 import torch
 
 from ..buffer.manager import BufferManager
+from ..kernels import build as kbuild
 from ..observability.metrics import METRICS
 from ..relational.aggregate import group_aggregate
 from ..relational.expressions import Expr, Lit, evaluate
 from ..relational.join import hash_join
 from ..relational.sort import sort_table
-from ..relational.table import Table
+from ..relational.table import Column, Table
 from . import instrument
+from .pipeline_compiler import PipelineCompiler
+from .plan_cache import ExecutablePlan, PlanCache, RecordedPipeline, plan_signature
 from .plan import (
     AggregateRel, ExchangeRel, FetchRel, FilterRel, JoinRel, ProjectRel,
     ReadRel, Rel, ScalarSubquery, SortRel, walk,
@@ -85,6 +102,19 @@ class ProjectOp(_Op):
         for name, e in self.exprs:
             cols[name] = evaluate(e, t)
         return Table(cols)
+
+
+class SelectOp(_Op):
+    """Column pruning as a pipeline op (deferred ReadRel projection: the
+    scan keeps filter columns alive until the fused filter consumed them)."""
+
+    category = "project"
+
+    def __init__(self, columns):
+        self.columns = list(columns)
+
+    def __call__(self, t: Table) -> Table:
+        return t.select([c for c in self.columns if c in t])
 
 
 class ProbeOp(_Op):
@@ -136,6 +166,11 @@ class _Sink:
 
     def push(self, t: Table) -> None:
         self.parts.append(t)
+
+    def reset(self) -> None:
+        """Clear pushed parts for a plan-cache replay; the ``_Result``
+        handle keeps its identity (downstream pipelines hold references)."""
+        self.parts = []
 
     def _gathered(self) -> Table:
         return self.parts[0] if len(self.parts) == 1 else Table.concat(self.parts)
@@ -287,18 +322,64 @@ class PlanLowering:
 # ---------------------------------------------------------------------------
 
 
+class _GraphReplay:
+    """A warm replay captured as one CUDA graph.
+
+    ``outs`` are the result columns in graph memory (cloned out on every
+    replay), ``flag`` the folded replay flags (None when the recording
+    pulled no device scalar), ``launches`` the kernel launches the graph
+    holds per kernel, and ``inputs`` table → column → (tensor, address) of
+    what the graph reads (held, so the memory stays allocated)."""
+
+    def __init__(self, graph, out_meta, outs, flag, launches, inputs):
+        self.graph = graph
+        self.out_meta = out_meta
+        self.outs = outs
+        self.flag = flag
+        self.launches = launches
+        self.inputs = inputs
+
+
 class PipelineExecutor:
     """Global task queue + worker threads pulling ready pipelines."""
 
     def __init__(self, buffers: BufferManager, num_workers: int = 2,
                  morsel_rows: Optional[int] = None, backend=None,
-                 profile: bool = False):
+                 profile: bool = False, compile_pipelines: bool = True):
         self.buffers = buffers
         self.num_workers = num_workers
         self.morsel_rows = morsel_rows
         self.backend = backend
         self.profile = profile
+        self.compile_pipelines = compile_pipelines
+        self.compiler = PipelineCompiler()
         self.op_times: Dict[str, float] = defaultdict(float)
+        # executable-plan cache: signature → recorded pipelines + prepared
+        # stages + scalar-pull schedule (+ the captured graph on the card)
+        self.plan_cache = PlanCache()
+        self._exec_depth = 0
+        # per-execute telemetry: first-call ("trace") time this query
+        # incurred, how the plan cache resolved it and, for a warm run,
+        # whether a graph or the closure loop replayed it
+        self.last_compile_seconds = 0.0
+        self.last_plan_signature: Optional[str] = None
+        self.last_plan_cache_hit = False
+        self.last_replay_mode: Optional[str] = None
+        # CUDA graph captures that failed (their entries keep the closure
+        # loop): the count, and the last error per plan signature
+        self.capture_failures = 0
+        self.capture_errors: Dict[str, str] = {}
+        # one graph memory pool for every entry of this executor: graphs
+        # replay one at a time and their results are cloned out at once,
+        # so an entry's intermediates may reuse another's freed blocks.
+        # The allocator drops a pool with its last graph, so a capture
+        # after that takes a fresh pool (``_graphs`` holds the live ones)
+        self._graph_pool = None
+        self._graphs: "weakref.WeakSet[_GraphReplay]" = weakref.WeakSet()
+        # the stream warm-up walks and captures run on: one for the
+        # executor's life, since the allocator keeps freed blocks for reuse
+        # on the stream that allocated them
+        self._side_stream = None
 
     @property
     def device(self) -> torch.device:
@@ -338,8 +419,314 @@ class PipelineExecutor:
                             item.expr = self._resolve_subqueries(item.expr)
 
     def execute(self, plan: Rel) -> Table:
-        """Run ``plan`` (mutates it: scalar subqueries become literals)."""
+        """Run ``plan`` (a cold run mutates it: scalar subqueries become
+        literals).  Nested calls (scalar-subquery plans) go through the same
+        path and cache."""
         t0 = time.perf_counter()
+        top_level = self._exec_depth == 0
+        if top_level:
+            self.last_plan_signature = None
+            self.last_plan_cache_hit = False
+            self.last_replay_mode = None
+            trace_s0 = self.compiler.stats["trace_seconds"]
+        self._exec_depth += 1
+        try:
+            # the plan cache owns the default path; profiled and
+            # morsel-driven runs keep the uncached pipeline executor
+            use_cache = (self.compile_pipelines and not self.profile
+                         and not self.morsel_rows)
+            if use_cache:
+                out = self._execute_cached(plan)
+            else:
+                out = self._execute_inner(plan)
+        finally:
+            self._exec_depth -= 1
+            if top_level:
+                self.last_compile_seconds = (
+                    self.compiler.stats["trace_seconds"] - trace_s0)
+        METRICS.histogram("executor.query_seconds").observe(
+            time.perf_counter() - t0)
+        return out
+
+    # -- executable-plan cache -------------------------------------------------
+    def _execute_cached(self, plan: Rel) -> Table:
+        """Default-path entry: replay a cached executable plan, or run cold
+        while recording one.  The signature is computed over the unprepared
+        plan (``_prepare`` mutates it), so fresh plan objects for the same
+        query hit the same entry.  Only ``ReplayMismatch`` sends a replay
+        back to a cold run; any other error raises."""
+        sig = plan_signature(plan)
+        entry = self.plan_cache.lookup(sig)
+        if entry is not None and not self._entry_fresh(entry):
+            self.plan_cache.invalidate(sig)
+            entry = None
+        if entry is not None:
+            try:
+                out = self._replay_entry(entry)
+                self.last_plan_signature = sig
+                self.last_plan_cache_hit = True
+                return out
+            except instrument.ReplayMismatch:
+                self.plan_cache.invalidate(sig, mismatch=True)
+        out = self._execute_recording(plan, sig)
+        self.last_plan_signature = sig
+        return out
+
+    def _execute_recording(self, plan: Rel, sig: str) -> Table:
+        """Cold run that assembles the executable plan as it goes.
+
+        Pipelines run serially on the calling thread in creation order
+        (``PlanLowering`` emits dependencies first, so that *is* a
+        topological order): the scalar recording is thread-local and the
+        replayed pull sequence must be deterministic."""
+        self._prepare(plan)
+        lowering = PlanLowering(self.backend)
+        final = lowering.lower(plan)
+        recorded = [self._run_pipeline_recorded(p) for p in lowering.pipelines]
+        out = final.sink.result.table
+        if out is not None:
+            # the query's single host wait: materialize the result table
+            instrument.barrier(self.device)
+        entry = ExecutablePlan(recorded, final)
+        entry.epochs = {
+            p.source.table: self.buffers.table_epochs.get(p.source.table, 0)
+            for p in lowering.pipelines if isinstance(p.source, ReadRel)}
+        if self.backend is None:
+            # as the reference compiles only where no kernel backend is
+            # attached, so the port captures only there
+            self._compile_replay(entry, sig)
+        self._release(entry)
+        self.plan_cache.store(sig, entry)
+        return out
+
+    def _run_pipeline_recorded(self, p: Pipeline) -> RecordedPipeline:
+        ops = p.ops
+        fuse_scan_filter = (self.backend is None and bool(p.ops)
+                            and isinstance(p.source, ReadRel)
+                            and p.source.filter is not None)
+        if fuse_scan_filter:
+            ops = [FilterOp(p.source.filter)]
+            if p.source.columns:
+                ops.append(SelectOp(p.source.columns))
+            ops += list(p.ops)
+        values: List = []
+        with instrument.pipeline_scope():
+            # probe lowering happens once, here; its eligibility pulls must
+            # never join the replay schedule (warm runs skip prepare)
+            with instrument.pulls_suspended():
+                stages = self.compiler.prepare(ops, self.backend)
+            with instrument.scalar_recording(values):
+                src = self._source_table(p.source,
+                                         skip_filter=fuse_scan_filter)
+                approx_bytes = max(src.nbytes, 1)
+                self.buffers.alloc_processing(approx_bytes)
+                try:
+                    t = src
+                    for stage in stages:
+                        t = stage(t)
+                    p.sink.push(t)
+                    p.sink.finalize()
+                finally:
+                    self.buffers.free_processing(approx_bytes)
+        return RecordedPipeline(p, stages, values, fuse_scan_filter)
+
+    def _replay_core(self, entry: ExecutablePlan, flags: List) -> Table:
+        """Warm-path body: the loop over already-prepared closures.
+
+        Runs as the closure loop and under CUDA graph capture
+        (``_compile_replay``): everything inside must stay free of host
+        syncs and host-to-device copies on the paths cached entries take."""
+        for rp in entry.pipelines:
+            if not rp.must_run:
+                continue
+            p = rp.pipeline
+            p.sink.reset()
+            with instrument.pipeline_scope():
+                with instrument.scalar_replay(rp.values, flags):
+                    src = self._source_table(p.source,
+                                             skip_filter=rp.fuse_scan_filter)
+                    approx_bytes = max(src.nbytes, 1)
+                    self.buffers.alloc_processing(approx_bytes)
+                    try:
+                        t = src
+                        for stage in rp.stages:
+                            t = stage(t)
+                        p.sink.push(t)
+                        p.sink.finalize()
+                        p.sink.reset()
+                    finally:
+                        self.buffers.free_processing(approx_bytes)
+        out = entry.final.sink.result.table
+        self._release(entry)
+        return out
+
+    @staticmethod
+    def _release(entry: ExecutablePlan) -> None:
+        """Drop the entry's hold on the results a replay recomputes once a
+        run is over (under a capture the freed blocks go back to the graph
+        pool for other entries' graphs).  The results of pipelines a replay
+        skips stay: a segment whose region declined runs its probe eagerly
+        against them."""
+        for rp in entry.pipelines:
+            rp.pipeline.sink.reset()
+            if rp.must_run:
+                rp.pipeline.sink.result.table = None
+
+    def _compile_replay(self, entry: ExecutablePlan, sig: str) -> None:
+        """Walk the warm replay once at record time and, on the card,
+        capture it as one CUDA graph (the reference AOT-compiles it into
+        one XLA program).
+
+        The walk is the capture's warm-up: it runs on a side stream, so
+        that memoized string host passes and first allocations happen
+        outside the capture; on the CPU it is the whole step, and the
+        closure loop serves warm runs.  A capture that fails leaves
+        ``entry.compiled = None`` (the closure loop) and is counted in
+        ``capture_failures``.  The time is attributed like a region's first
+        call (``compiler.stats["trace_seconds"]``)."""
+        t0 = time.perf_counter()
+        try:
+            side = None
+            if self.device.type == "cuda":
+                if self._side_stream is None:
+                    self._side_stream = torch.cuda.Stream(self.device)
+                side = self._side_stream
+                side.wait_stream(torch.cuda.current_stream(self.device))
+            with (torch.cuda.stream(side) if side is not None
+                  else contextlib.nullcontext()):
+                self._replay_core(entry, [])
+            if side is None:
+                return
+            try:
+                entry.compiled = self._capture_replay(entry, side)
+                METRICS.counter("plan_cache.replay_captures").inc()
+            except Exception as exc:  # noqa: BLE001 — the closure loop stays
+                entry.compiled = None
+                self.capture_failures += 1
+                self.capture_errors[sig] = f"{type(exc).__name__}: {exc}"
+                METRICS.counter("plan_cache.capture_failures").inc()
+        finally:
+            dt = time.perf_counter() - t0
+            self.compiler.stats["trace_seconds"] += dt
+            METRICS.histogram("pipeline_compiler.trace_seconds").observe(dt)
+
+    def _capture_replay(self, entry: ExecutablePlan,
+                        stream: torch.cuda.Stream) -> _GraphReplay:
+        if not self._graphs:
+            self._graph_pool = torch.cuda.graph_pool_handle()
+        inputs: Dict[str, Dict[str, tuple]] = {}
+        for rp in entry.pipelines:
+            src = rp.pipeline.source
+            if rp.must_run and isinstance(src, ReadRel):
+                inputs[src.table] = {
+                    n: (c.data, c.data.data_ptr())
+                    for n, c in self.buffers.get(src.table).columns.items()}
+        graph = torch.cuda.CUDAGraph()
+        launches0 = kbuild.launch_counts()
+        flags: List = []
+        # capture_begin/end on the warm-up's side stream, as torch.cuda.graph
+        # does, but without its synchronize, gc.collect and empty_cache: the
+        # warm-up walk has just run, and emptying the allocator's cache
+        # would make the next query go back to cudaMalloc
+        current = torch.cuda.current_stream(self.device)
+        try:
+            with torch.cuda.stream(stream):
+                graph.capture_begin(pool=self._graph_pool)
+                try:
+                    out = self._replay_core(entry, flags)
+                    flag = torch.stack(flags).any() if flags else None
+                except BaseException:
+                    try:
+                        graph.capture_end()
+                    except Exception:  # noqa: BLE001 — the first error is the one
+                        pass
+                    raise
+                graph.capture_end()
+            current.wait_stream(stream)
+        finally:
+            # the capture launched nothing: what it recorded runs, and is
+            # counted, at each replay
+            launches = {k: v - launches0[k]
+                        for k, v in kbuild.launch_counts().items()}
+            kbuild.add_launch_counts({k: -v for k, v in launches.items()})
+        gr = _GraphReplay(
+            graph, [(n, c.kind, c.dictionary) for n, c in out.columns.items()],
+            [c.data for c in out.columns.values()], flag,
+            {k: v for k, v in launches.items() if v}, inputs)
+        self._graphs.add(gr)
+        return gr
+
+    def _replay_entry(self, entry: ExecutablePlan) -> Table:
+        """The warm path.
+
+        No parsing, no lowering, no probe builds, no scalar syncs: every
+        ``pull_scalar`` is served from the recording and the device-side
+        flags are read after the single final barrier.  A set flag means
+        the data under a recorded cardinality changed: ``ReplayMismatch``,
+        so the caller invalidates and re-runs cold.  An entry with a
+        captured graph replays it; the rest run the closure loop."""
+        if entry.compiled is not None:
+            self.last_replay_mode = "graph"
+            return self._replay_graph(entry.compiled)
+        self.last_replay_mode = "closure"
+        flags: List = []
+        out = self._replay_core(entry, flags)
+        flag = torch.stack(flags).any() if flags else None
+        instrument.barrier(self.device)
+        if flag is not None and instrument.read_after_barrier(flag):
+            raise instrument.ReplayMismatch(
+                "recorded scalar diverged on replay")
+        return out
+
+    def _replay_graph(self, gr: _GraphReplay) -> Table:
+        for name, cols in gr.inputs.items():
+            cur = self.buffers.get(name)   # a spilled table comes back here
+            for col, (_, ptr) in cols.items():
+                if cur[col].data.data_ptr() != ptr:
+                    # promoted after a spill: the graph would read freed memory
+                    raise instrument.ReplayMismatch(
+                        f"{name}.{col} moved under its captured graph")
+        gr.graph.replay()
+        # the result columns are graph memory: a later replay must never
+        # change a table a caller holds
+        outs = [t.clone() for t in gr.outs]
+        kbuild.add_launch_counts(gr.launches)
+        instrument.barrier(self.device)
+        if gr.flag is not None and instrument.read_after_barrier(gr.flag):
+            raise instrument.ReplayMismatch(
+                "recorded scalar diverged on replay")
+        return Table({n: Column(t, kind, dct)
+                      for (n, kind, dct), t in zip(gr.out_meta, outs)})
+
+    def _entry_fresh(self, entry: ExecutablePlan) -> bool:
+        """True while every table the entry scans is still the generation
+        the recording read (epoch-checked so direct ``cache_table``
+        re-caches, which bypass ``register``, invalidate replays too)."""
+        return all(self.buffers.table_epochs.get(n, 0) == e
+                   for n, e in entry.epochs.items())
+
+    def replay_signature(self, sig: str) -> Optional[Table]:
+        """Warm front door for the engine's SQL text cache: replay the
+        entry under ``sig``, or return None (missing, stale or mismatched)
+        so the caller takes its full parse path."""
+        entry = self.plan_cache.lookup(sig)
+        if entry is not None and not self._entry_fresh(entry):
+            self.plan_cache.invalidate(sig)
+            entry = None
+        if entry is None:
+            return None
+        try:
+            out = self._replay_entry(entry)
+        except instrument.ReplayMismatch:
+            self.plan_cache.invalidate(sig, mismatch=True)
+            return None
+        self.last_plan_signature = sig
+        self.last_plan_cache_hit = True
+        self.last_compile_seconds = 0.0
+        return out
+
+    # -- the uncached path ------------------------------------------------------
+    def _execute_inner(self, plan: Rel) -> Table:
         self._prepare(plan)
         lowering = PlanLowering(self.backend)
         final = lowering.lower(plan)
@@ -405,15 +792,13 @@ class PipelineExecutor:
         if out is not None and not self.profile:
             # the query's single host wait: materialize the result table
             instrument.barrier(self.device)
-        METRICS.histogram("executor.query_seconds").observe(
-            time.perf_counter() - t0)
         return out
 
     # -- single pipeline ------------------------------------------------------
-    def _source_table(self, source) -> Table:
+    def _source_table(self, source, skip_filter: bool = False) -> Table:
         if isinstance(source, ReadRel):
             t = self.buffers.get(source.table)
-            if source.filter is not None:
+            if source.filter is not None and not skip_filter:
                 t0 = time.perf_counter()
                 out = (self.backend.try_filter(source.filter, t)
                        if self.backend is not None else None)
@@ -425,7 +810,13 @@ class PipelineExecutor:
                     instrument.barrier(self.device)
                     self.op_times["filter"] += time.perf_counter() - t0
             if source.columns:
-                t = t.select([c for c in source.columns if c in t])
+                keep = [c for c in source.columns if c in t]
+                if skip_filter and source.filter is not None:
+                    # deferred filter: its columns ride along until the fused
+                    # region applies the filter and the SelectOp prunes them
+                    keep += [c for c in source.filter.columns()
+                             if c in t and c not in keep]
+                t = t.select(keep)
             return t
         if isinstance(source, _Result):
             assert source.table is not None, "dependency not materialized"
@@ -441,21 +832,36 @@ class PipelineExecutor:
             yield t.take(torch.arange(lo, hi, device=t.device))
 
     def _run_pipeline(self, p: Pipeline) -> None:
+        # pushed-down ReadRel filters join the fused region as its first op
+        # (compiled, no kernel backend: the backend's filter kernel keeps
+        # the eager route) — only worthwhile with downstream ops to fuse
+        fuse_scan_filter = (not self.profile and self.compile_pipelines
+                            and self.backend is None and bool(p.ops)
+                            and isinstance(p.source, ReadRel)
+                            and p.source.filter is not None)
+        ops = p.ops
+        if fuse_scan_filter:
+            ops = [FilterOp(p.source.filter)]
+            if p.source.columns:
+                ops.append(SelectOp(p.source.columns))
+            ops += list(p.ops)
         with instrument.pipeline_scope():
-            src = self._source_table(p.source)
+            src = self._source_table(p.source, skip_filter=fuse_scan_filter)
             approx_bytes = max(src.nbytes, 1)
             self.buffers.alloc_processing(approx_bytes)
             try:
                 if self.profile:
                     self._run_profiled(p, src)
                     return
-                # default path: eager operators, asynchronous device work —
-                # downstream pipelines consume the sink's tensors without a
-                # barrier; the single wait is at the query's final sink
+                # asynchronous device work: downstream pipelines consume the
+                # sink's tensors without a barrier; the single wait is at
+                # the query's final sink
+                stages = (self.compiler.prepare(ops, self.backend)
+                          if self.compile_pipelines else ops)
                 for morsel in self._morsels(src):
                     t = morsel
-                    for op in p.ops:
-                        t = op(t)
+                    for stage in stages:
+                        t = stage(t)
                     p.sink.push(t)
                 p.sink.finalize()
             finally:
@@ -505,7 +911,7 @@ class SiriusEngine:
     def __init__(self, caching_bytes: int = 8 << 30, processing_bytes: int = 8 << 30,
                  num_workers: int = 2, morsel_rows: Optional[int] = None,
                  use_kernels: bool = False, profile: bool = False,
-                 device=None):
+                 compile_pipelines: bool = True, device=None):
         self.device = torch.device(device) if device is not None else default_device()
         self.buffers = BufferManager(caching_bytes, processing_bytes, self.device)
         backend = None
@@ -514,14 +920,30 @@ class SiriusEngine:
             backend = KernelBackend()
         self.backend = backend
         self.executor = PipelineExecutor(self.buffers, num_workers, morsel_rows,
-                                         backend, profile=profile)
+                                         backend, profile=profile,
+                                         compile_pipelines=compile_pipelines)
         # host-side string dictionaries harvested at registration — kept
         # instead of the Tables themselves so the buffer manager stays free
         # to spill device columns
         self.table_dictionaries: Dict[str, Dict[str, object]] = {}
+        # warm front door: normalized SQL text → executable-plan signature,
+        # skipping lexer, parser, binder and optimizer on a hit; cleared
+        # with the plan cache on every register()
+        self._sql_plan_sigs: Dict[str, str] = {}
+
+    @property
+    def compiler(self):
+        """The signature-keyed region cache (its stats live here)."""
+        return self.executor.compiler
 
     def register(self, name: str, table: Table):
-        """Cache ``table`` on the engine's device under ``name``."""
+        """Cache ``table`` on the engine's device under ``name`` (tensors
+        already on that device are held, not copied).
+
+        Registered data is the one thing allowed to change between
+        queries: every cached executable plan and SQL key is dropped."""
+        self.executor.plan_cache.clear()
+        self._sql_plan_sigs.clear()
         self.buffers.cache_table(name, table)
         dicts = {c: col.dictionary for c, col in table.columns.items()
                  if col.dictionary is not None}
@@ -540,11 +962,30 @@ class SiriusEngine:
 
         The optimizer's catalog (default: TPC-H at SF 1) is enriched with
         the registered tables' string dictionaries, so LIKE / IN / prefix
-        predicates are costed by their dictionary hit rate.  The reference's
-        warm front door (plan cache), journal span and ``EXPLAIN ANALYZE``
-        are not ported yet; ``EXPLAIN ANALYZE`` raises."""
-        from ..sql import run_sql
+        predicates are costed by their dictionary hit rate.
+
+        Repeated queries take the warm path: the normalized text keys an
+        executable-plan signature, so a hit skips lexer, parser, binder,
+        optimizer and lowering and replays the cached entry
+        (``PipelineExecutor.replay_signature``).  The reference's journal
+        span and ``EXPLAIN ANALYZE`` are not ported yet; ``EXPLAIN
+        ANALYZE`` raises."""
+        from ..sql import EXPLAIN_ANALYZE_RE, run_sql
         from ..sql.binder import DEFAULT_CATALOG
+        cacheable = (EXPLAIN_ANALYZE_RE.match(text) is None
+                     and catalog is None and optimize)
+        if cacheable:
+            # (the reference keeps the space before a trailing ";", so
+            # "... x ;" misses its cache; the port strips it)
+            key = " ".join(text.split()).rstrip(";").rstrip()
+            sig = self._sql_plan_sigs.get(key)
+            if sig is not None:
+                out = self.executor.replay_signature(sig)
+                if out is not None:
+                    return out
         cat = (catalog or DEFAULT_CATALOG).with_dictionaries(
             self.table_dictionaries)
-        return run_sql(text, self, catalog=cat, optimize=optimize)
+        out = run_sql(text, self, catalog=cat, optimize=optimize)
+        if cacheable and self.executor.last_plan_signature is not None:
+            self._sql_plan_sigs[key] = self.executor.last_plan_signature
+        return out

@@ -15,9 +15,14 @@ mirrored into ``observability.METRICS``:
 that scope, so a test can assert that the data path stays on the device.
 A ``pull_scalar`` read is counted in ``scalar_syncs`` and not as a
 transfer, as in the reference, whose ``track_transfers`` watches
-``np.asarray`` and whose scalar pulls do not pass through it.  The
-reference's record/replay protocol belongs to the plan cache, which this
-package does not have yet.
+``np.asarray`` and whose scalar pulls do not pass through it.
+
+``pull_scalar`` also records and replays, for the executable-plan cache
+(``core.plan_cache``): a cold run under ``scalar_recording`` appends every
+pulled value; a warm run under ``scalar_replay`` is served those values
+without a sync, and each device scalar leaves a device-side
+``x != recorded`` flag that the executor folds into the query's one
+barrier.
 """
 from __future__ import annotations
 
@@ -84,19 +89,116 @@ def barrier(device: torch.device) -> None:
 _ITEM = torch.Tensor.item
 
 
+def read_after_barrier(x: torch.Tensor):
+    """Read a device scalar the query's barrier has already materialized
+    (the replay flags): no wait, so counted neither as a sync nor as a
+    transfer, as the reference's ``bool(flag)`` after its barrier is not."""
+    return _ITEM(x)
+
+
+_local = threading.local()
+
+
+class ReplayMismatch(Exception):
+    """A replayed execution diverged structurally from its recording.
+
+    Raised when a warm run performs more or fewer pulls than the cold run
+    recorded, or a host-side scalar differs from its recording.  (Value
+    divergence of a device scalar is detected at the final barrier through
+    the device-side flags, not here.)  The executor invalidates the entry
+    and re-runs cold."""
+
+
+class _ScalarCtx:
+    __slots__ = ("mode", "values", "pos", "flags")
+
+    def __init__(self, mode: str, values: list, flags: list = None):
+        self.mode = mode          # "record" | "replay"
+        self.values = values
+        self.pos = 0
+        self.flags = flags
+
+
+def _materialize(x):
+    return x.item() if hasattr(x, "item") else x
+
+
 def pull_scalar(x):
     """Read a device scalar (dynamic row count, eligibility bit) on the host.
 
-    Tensors are read with ``.item()`` and counted into ``scalar_syncs``;
-    host values (python or numpy scalars) pass through uncounted.
+    * **normal** — tensors are read with ``.item()`` and counted into
+      ``scalar_syncs``; host values (python or numpy scalars) pass through
+      uncounted;
+    * **record** (cold run under the plan cache) — the same, and the value
+      is appended to the active recording;
+    * **replay** (warm run) — the recorded value comes back without a sync;
+      for a tensor the ``x != recorded`` test stays on the device, in the
+      replay's flags.
     """
+    ctx = getattr(_local, "scalar_ctx", None)
+    if ctx is not None and ctx.mode == "replay":
+        if ctx.pos >= len(ctx.values):
+            raise ReplayMismatch(
+                f"replay exhausted after {len(ctx.values)} recorded pulls")
+        v = ctx.values[ctx.pos]
+        ctx.pos += 1
+        if isinstance(x, torch.Tensor):
+            ctx.flags.append((x != v).reshape(()))
+        elif _materialize(x) != v:
+            raise ReplayMismatch("host-side scalar diverged from recording")
+        return v
     if isinstance(x, torch.Tensor):
         scalar_syncs.inc()
         METRICS.counter("executor.scalar_syncs").inc()
-        return _ITEM(x)
-    return x.item() if hasattr(x, "item") else x
+        v = _ITEM(x)
+    else:
+        v = _materialize(x)
+    if ctx is not None and ctx.mode == "record":
+        ctx.values.append(v)
+    return v
 
-_local = threading.local()
+
+@contextlib.contextmanager
+def scalar_recording(values: list) -> Iterator[None]:
+    """Append every ``pull_scalar`` value on this thread to ``values``."""
+    prev = getattr(_local, "scalar_ctx", None)
+    _local.scalar_ctx = _ScalarCtx("record", values)
+    try:
+        yield
+    finally:
+        _local.scalar_ctx = prev
+
+
+@contextlib.contextmanager
+def scalar_replay(values: list, flags: list) -> Iterator[None]:
+    """Serve ``pull_scalar`` calls from ``values`` without syncing.
+
+    Device-side ``!=`` flags accumulate into ``flags``; the caller folds
+    them into its final barrier and treats any set flag as a cache
+    invalidation.  Raises ``ReplayMismatch`` if the pull sequence outruns
+    the recording or ends short of it."""
+    prev = getattr(_local, "scalar_ctx", None)
+    ctx = _ScalarCtx("replay", values, flags)
+    _local.scalar_ctx = ctx
+    try:
+        yield
+        if ctx.pos != len(values):
+            raise ReplayMismatch(
+                f"replay consumed {ctx.pos} of {len(values)} recorded pulls")
+    finally:
+        _local.scalar_ctx = prev
+
+
+@contextlib.contextmanager
+def pulls_suspended() -> Iterator[None]:
+    """Temporarily drop out of record/replay (prepare-time code paths:
+    probe lowering) so their pulls never join a schedule."""
+    prev = getattr(_local, "scalar_ctx", None)
+    _local.scalar_ctx = None
+    try:
+        yield
+    finally:
+        _local.scalar_ctx = prev
 
 
 def _depth() -> int:

@@ -210,13 +210,18 @@ class KernelBackend:
 
         # (N, V) value matrix: ones column (counts) + centered additive
         # columns split into hi/lo f32 pairs (v - c == hi + lo exactly to
-        # ~2^-46 relative).  Centering constants stay on device (f64 scalars).
+        # ~2^-46 relative).  Centering constants stay on device (f64
+        # scalars).  The centre is the mean rounded to an integer (the
+        # reference takes the mean itself): an integer-valued column then
+        # centres to small integers whose group sums the f32 outputs hold
+        # exactly, so a HAVING on such a sum (Q18's sum(l_quantity) > 300)
+        # sees the exact value
         sum_cols = [torch.ones(t.num_rows, dtype=torch.float32, device=t.device)]
         routes = []                      # per agg: (hi column index, center)
         for a, col in zip(aggs, values):
             if a.fn in ("sum", "avg"):
                 data = col.data.to(torch.float64)
-                c = data.mean()
+                c = torch.round(data.mean())
                 centered = data - c
                 hi = centered.to(torch.float32)
                 lo = (centered - hi.to(torch.float64)).to(torch.float32)

@@ -2,16 +2,22 @@
 
 A tree of relational operators with embedded scalar expressions: ReadRel,
 FilterRel, ProjectRel, JoinRel, AggregateRel, SortRel, FetchRel and
-ExchangeRel (bypassed on a single node).  The JSON wire format, SetRel and
-WindowRel belong to the Substrait slice of the port and are not here yet.
+ExchangeRel (bypassed on a single node), and SetRel and WindowRel as IR
+only.  ``plan_to_json`` / ``plan_from_json`` are the reference's JSON
+rendering of a plan, byte for byte; the Substrait wire format is a later
+slice of the port.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Tuple
+import json
+from typing import Any, List, Optional, Tuple
 
 from ..relational.aggregate import AggSpec
-from ..relational.expressions import Expr
+from ..relational.expressions import (
+    Between, BinOp, Case, Cast, Col, Expr, ExtractYear, InList, Like, Lit,
+    StartsWith, Substr, UnOp,
+)
 from ..relational.sort import SortKey
 
 
@@ -133,11 +139,114 @@ class ScalarSubquery(Expr):
         return id(self)
 
 
+# ---------------------------------------------------------------------------
+# JSON serialization (the reference's plan rendering, byte for byte)
+# ---------------------------------------------------------------------------
+
+_EXPR_TYPES = {c.__name__: c for c in
+               (Col, Lit, BinOp, UnOp, Between, InList, Like, StartsWith,
+                Case, ExtractYear, Substr, Cast)}
+_REL_TYPES = {c.__name__: c for c in
+              (ReadRel, FilterRel, ProjectRel, JoinRel, AggregateRel, SortRel,
+               FetchRel, ExchangeRel, SetRel, WindowRel)}
+
+
+def _enc(obj: Any) -> Any:
+    if isinstance(obj, ScalarSubquery):
+        return {"@expr": "ScalarSubquery", "plan": _enc(obj.plan), "column": obj.column}
+    if isinstance(obj, Expr):
+        d = {"@expr": type(obj).__name__}
+        for f in dataclasses.fields(obj):
+            d[f.name] = _enc(getattr(obj, f.name))
+        return d
+    if isinstance(obj, Rel):
+        d = {"@rel": type(obj).__name__}
+        for f in dataclasses.fields(obj):
+            d[f.name] = _enc(getattr(obj, f.name))
+        return d
+    if isinstance(obj, AggSpec):
+        return {"@agg": True, "fn": obj.fn, "expr": _enc(obj.expr), "name": obj.name}
+    if isinstance(obj, SortKey):
+        return {"@sortkey": True, "name": obj.name, "ascending": obj.ascending}
+    if isinstance(obj, (list, tuple)):
+        return [_enc(x) for x in obj]
+    return obj
+
+
+def _dec(d: Any) -> Any:
+    if isinstance(d, list):
+        return [_dec(x) for x in d]
+    if not isinstance(d, dict):
+        return d
+    if "@expr" in d:
+        name = d.pop("@expr")
+        if name == "ScalarSubquery":
+            return ScalarSubquery(_dec(d["plan"]), d["column"])
+        cls = _EXPR_TYPES[name]
+        kwargs = {k: _dec(v) for k, v in d.items()}
+        if name == "Case":
+            kwargs["whens"] = [tuple(w) for w in kwargs["whens"]]
+        return cls(**kwargs)
+    if "@rel" in d:
+        name = d.pop("@rel")
+        cls = _REL_TYPES[name]
+        kwargs = {k: _dec(v) for k, v in d.items()}
+        if name == "ProjectRel":
+            kwargs["exprs"] = [tuple(e) for e in kwargs["exprs"]]
+        return cls(**kwargs)
+    if d.get("@agg"):
+        return AggSpec(d["fn"], _dec(d["expr"]), d["name"])
+    if d.get("@sortkey"):
+        return SortKey(d["name"], d["ascending"])
+    return d
+
+
+def plan_to_json(plan: Rel) -> str:
+    return json.dumps(_enc(plan))
+
+
+def plan_from_json(s: str) -> Rel:
+    return _dec(json.loads(s))
+
+
 def walk(plan: Rel):
     """Pre-order traversal."""
     yield plan
     for child in plan.inputs():
         yield from walk(child)
+
+
+def rel_exprs(rel: Rel) -> List[Expr]:
+    """All Expr objects directly attached to ``rel`` (scan filters, join
+    residuals, projection expressions, aggregate measures, having...)."""
+    out: List[Expr] = []
+    for f in dataclasses.fields(rel):
+        v = getattr(rel, f.name)
+        if isinstance(v, Expr):
+            out.append(v)
+        elif isinstance(v, list):
+            for item in v:
+                if isinstance(item, Expr):
+                    out.append(item)
+                elif isinstance(item, tuple):
+                    out.extend(x for x in item if isinstance(x, Expr))
+                elif isinstance(item, AggSpec) and isinstance(item.expr, Expr):
+                    out.append(item.expr)
+    return out
+
+
+def walk_deep(plan: Rel):
+    """Pre-order traversal that also descends into scalar-subquery sub-plans
+    (``walk`` stays expression-blind)."""
+    from ..relational.expressions import walk_expr
+
+    yield plan
+    for e in rel_exprs(plan):
+        for node in walk_expr(e):
+            if isinstance(node, ScalarSubquery):
+                yield from walk_deep(node.plan)
+    for child in plan.inputs():
+        yield from walk_deep(child)
 
 
 def _expr_str(e: Expr) -> str:

@@ -169,6 +169,14 @@ def count_launch(name: str) -> None:
         _launches[name] += 1
 
 
+def add_launch_counts(counts: dict) -> None:
+    """Add per-kernel launches made outside ``launch``: those a replayed
+    CUDA graph holds (negative to take back what a capture counted)."""
+    with _counts_lock:
+        for k, n in counts.items():
+            _launches[k] += n
+
+
 def launch_counts() -> dict:
     with _counts_lock:
         return dict(_launches)

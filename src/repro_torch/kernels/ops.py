@@ -1,11 +1,14 @@
 """Glue around the kernels — counterpart of ``repro/kernels/ops.py``.
 
 What the reference computes here in jnp stays plain torch: bucketing and
-padding, the sort-based join build, probe-key mapping, static-size
-compaction, the filter's compaction and the group-space partitioning.
+padding, the sort-based and direct-address join builds and their lookups,
+key bounds, probe-key mapping and factorization, static-size compaction,
+the filter's compaction and the group-space partitioning.
+``hash_probe_int64`` launches the ``hash_probe`` kernel.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .decode_attention import decode_attention
@@ -17,9 +20,11 @@ from .topk import topk_select
 
 __all__ = [
     "bucket_size", "build_table32", "compact", "decode_attention",
-    "filter_mask_counts",
-    "filter_select", "groupby_sum", "groupby_sum_large", "hash_probe",
-    "join_expand", "map_probe_keys", "pad_rows", "sorted_build", "topk_select",
+    "direct_build", "direct_lookup", "factorize_keys_int32",
+    "factorize_keys_int32_device", "filter_mask_counts", "filter_select",
+    "groupby_sum", "groupby_sum_large", "hash_probe", "hash_probe_int64",
+    "join_expand", "key_bounds", "map_probe_keys", "pad_rows",
+    "sorted_build", "sorted_lookup", "topk_select",
 ]
 
 _GROUP_BUDGET = 4096                      # groups per groupby_sum call
@@ -60,6 +65,97 @@ def sorted_build(keys_padded: torch.Tensor, valid: torch.Tensor):
     ranks = torch.zeros(nb, dtype=torch.int32, device=s.device)
     ranks[order] = torch.arange(nb, dtype=torch.int32, device=s.device)
     return s, order.to(torch.int32), ranks, dup, sentinel_hit
+
+
+def key_bounds(keys_padded: torch.Tensor, valid: torch.Tensor):
+    """(min, max, count) over the valid rows of a padded key column, as
+    device scalars."""
+    masked_lo = torch.where(valid, keys_padded, KEY_SENTINEL)
+    masked_hi = torch.where(valid, keys_padded, torch.iinfo(torch.int64).min)
+    return masked_lo.min(), masked_hi.max(), valid.sum()
+
+
+def direct_build(keys_padded: torch.Tensor, valid: torch.Tensor, lo,
+                 domain: int):
+    """Sort-free direct-address join build for dense key domains.
+
+    Scatters each row id into ``slot[key - lo]`` (the largest row id wins
+    where keys repeat, as the reference's ``.at[].max`` does).  → (slot
+    array int32 [-1 = empty], duplicate-key flag).  Padding rows scatter
+    into an overflow slot that is cut off."""
+    nb = keys_padded.shape[0]
+    device = keys_padded.device
+    idx = torch.clamp(keys_padded - lo, 0, domain - 1)
+    pos = torch.where(valid, idx, domain)          # pads → overflow slot
+    slot = torch.full((domain + 1,), -1, dtype=torch.int32, device=device)
+    slot.scatter_reduce_(0, pos, torch.arange(nb, dtype=torch.int32,
+                                              device=device),
+                         "amax", include_self=True)
+    counts = torch.zeros(domain + 1, dtype=torch.int32, device=device)
+    counts.index_add_(0, pos, torch.ones(nb, dtype=torch.int32, device=device))
+    dup = (counts[:domain] > 1).any()
+    return slot[:domain], dup
+
+
+def direct_lookup(slot: torch.Tensor, lo, probe_keys: torch.Tensor):
+    """Probe a direct-address build → (build row [-1], found)."""
+    domain = slot.shape[0]
+    idx = probe_keys - lo
+    ok = (idx >= 0) & (idx < domain)
+    row = slot[torch.clamp(idx, 0, domain - 1)]
+    found = ok & (row >= 0)
+    return torch.where(found, row, -1), found
+
+
+def sorted_lookup(s_keys: torch.Tensor, s_order: torch.Tensor,
+                  probe_keys: torch.Tensor):
+    """Probe sentinel-padded sorted build keys → (build row [-1], found).
+
+    Binary search and two gathers; first match wins (exact for unique
+    keys, existence semantics for semi/anti/mark)."""
+    pos = torch.clamp(torch.searchsorted(s_keys, probe_keys), 0,
+                      s_keys.shape[0] - 1)
+    k = s_keys[pos]
+    found = (k == probe_keys) & (k != KEY_SENTINEL)
+    row = s_order[pos]
+    return torch.where(found, row, -1), found
+
+
+def hash_probe_int64(probe_keys: torch.Tensor, build_keys: torch.Tensor,
+                     slots_key32: torch.Tensor, slots_row: torch.Tensor):
+    """Probe against a table built on int32-factorized keys, then verify
+    true key equality → (build row [-1], found).
+
+    The kernel takes the keys cast to int32, as the reference's wrapper
+    casts them; ``build_keys`` (indexed by the build row) must equal the
+    probe key for a hit, which rejects 32-bit factorization misses."""
+    row, found = hash_probe(probe_keys.to(torch.int32).contiguous(),
+                            slots_key32, slots_row)
+    ok = found & (build_keys[torch.clamp(row, min=0).long()] == probe_keys)
+    return torch.where(ok, row, -1), ok
+
+
+def factorize_keys_int32(build_keys_np: np.ndarray, probe_keys_np: np.ndarray):
+    """Map int64 key spaces into dense int32 ranks (host-side, exact)."""
+    uni = np.unique(build_keys_np)
+    b = np.searchsorted(uni, build_keys_np).astype(np.int32)
+    pos = np.searchsorted(uni, probe_keys_np)
+    pos = np.clip(pos, 0, len(uni) - 1)
+    hit = uni[pos] == probe_keys_np
+    p = np.where(hit, pos, -2).astype(np.int32)  # -2 never matches
+    return b, p
+
+
+def factorize_keys_int32_device(build_keys: torch.Tensor,
+                                probe_keys: torch.Tensor):
+    """Device-side analogue of ``factorize_keys_int32``: build keys ranked
+    against their sorted unique set, probe keys mapped through the same
+    ranking (-2 = absent) → (build ranks, probe ranks, unique keys).
+    ``torch.unique`` sizes its output from the data, so this syncs."""
+    uni = torch.unique(build_keys)
+    b = torch.searchsorted(uni, build_keys).to(torch.int32)
+    p = map_probe_keys(uni, probe_keys)
+    return b, p, uni
 
 
 def map_probe_keys(uni: torch.Tensor, probe_keys: torch.Tensor) -> torch.Tensor:

@@ -74,16 +74,6 @@ def hash_probe_ref(probe_keys: torch.Tensor, slots_key: torch.Tensor,
     return row, row >= 0
 
 
-def _repeat_padded(x: torch.Tensor, repeats: torch.Tensor,
-                   total: int) -> torch.Tensor:
-    """``jnp.repeat(x, repeats, total_repeat_length=total)``: exact
-    repetition, cut at ``total`` or padded with the last value of ``x``."""
-    r = torch.repeat_interleave(x, repeats)
-    if r.shape[0] >= total:
-        return r[:total]
-    return torch.cat([r, x[-1:].expand(total - r.shape[0])])
-
-
 def join_expand_ref(order: torch.Tensor, lo: torch.Tensor,
                     counts: torch.Tensor, counts_out: torch.Tensor,
                     total: int):
@@ -91,16 +81,19 @@ def join_expand_ref(order: torch.Tensor, lo: torch.Tensor,
 
     Output ``j`` belongs to the probe row whose run of ``counts_out`` covers
     it; ``total`` is the bucketed output length and the tail past the true
-    size is filler the caller slices off.  → (probe_idx, build_idx, matched),
-    each of length ``total``."""
+    size is filler the caller slices off (it lands on the last run, as the
+    reference's ``jnp.repeat(..., total_repeat_length=total)`` pads with
+    the last value).  → (probe_idx, build_idx, matched), each of length
+    ``total``.  The run of each output is a binary search over the runs'
+    inclusive ends, so nothing here waits for the device (a
+    ``repeat_interleave`` would read its output size back)."""
     n = lo.shape[0]
     device = lo.device
-    probe_idx = _repeat_padded(torch.arange(n, device=device), counts_out,
-                               total)
-    starts = torch.cat([torch.zeros(1, dtype=counts_out.dtype, device=device),
-                        torch.cumsum(counts_out[:-1], 0)])
-    intra = torch.arange(total, device=device) - _repeat_padded(
-        starts, counts_out, total)
+    ends = torch.cumsum(counts_out, 0)
+    j = torch.arange(total, device=device)
+    probe_idx = torch.clamp(torch.searchsorted(ends, j, right=True),
+                            max=max(n - 1, 0))
+    intra = j - (ends - counts_out)[probe_idx]
     build_pos = lo[probe_idx] + intra
     matched = counts[probe_idx] > 0
     nb = order.shape[0]

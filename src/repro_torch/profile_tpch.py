@@ -1,9 +1,14 @@
 #!/usr/bin/env python3
 """Where a warm query's time goes on the GPU, for the PyTorch/CUDA port.
 
-Loads TPC-H (default SF1) into ``repro_torch``'s ``SiriusEngine`` with the
-kernel backend on the card, warms each of Q1, Q6, Q3, Q5 once, then runs
-each once under ``torch.profiler`` (CPU and CUDA activity); with
+Loads TPC-H (default SF1) into ``repro_torch``'s ``SiriusEngine`` on the
+card, warms each of Q1, Q6, Q3, Q5 (or ``--queries``) once, then runs
+each once under ``torch.profiler`` (CPU and CUDA activity).  ``--engine``
+picks the path: ``eager`` (default: the kernel backend on the uncached
+path, ``compile_pipelines=False``), ``kernels`` (the default, plan-cached
+path with the kernel backend: a warm run replays the closure loop) or
+``graph`` (the default path without kernels: a warm run replays one CUDA
+graph); ClickBench always runs on ``eager``.  With
 ``--clickbench`` it does the same for the 15 ClickBench queries through
 ``SiriusEngine.sql`` on a hits sample of 2,000,000 rows, and with ``--lm``
 for decode steps of the LM server (``serve_lm``'s workload: ``llama3.2-3b``
@@ -22,7 +27,8 @@ step), one JSON line with:
   ``top_host`` — host self time by operator, the largest first.
 
 Run on a machine with a card, from the root of a checkout:
-``PYTHONPATH=src python3 -m repro_torch.profile_tpch [--sf 1.0] [--out FILE]``
+``PYTHONPATH=src python3 -m repro_torch.profile_tpch [--sf 1.0] [--engine E]
+[--queries 1,6,3,5] [--out FILE]``
 or ``... -m repro_torch.profile_tpch --clickbench`` or ``... --lm``.
 """
 from __future__ import annotations
@@ -35,6 +41,9 @@ from collections import defaultdict
 from pathlib import Path
 
 ORDER = (1, 6, 3, 5)
+ENGINES = {"eager": dict(use_kernels=True, compile_pipelines=False),
+           "kernels": dict(use_kernels=True),
+           "graph": dict(use_kernels=False)}
 CB_ROWS = 2_000_000      # the hits sample chip_smoke.py drives
 LM_FILL = 300            # cache rows filled before the profiled decode steps
                          # (within serve_lm's prompt lengths, 64-512)
@@ -119,6 +128,10 @@ def main() -> int:
                     help="profile the ClickBench queries instead of TPC-H")
     ap.add_argument("--lm", action="store_true",
                     help="profile decode steps of the LM server instead")
+    ap.add_argument("--engine", choices=sorted(ENGINES), default="eager",
+                    help="the TPC-H engine's path (see above)")
+    ap.add_argument("--queries", default=",".join(map(str, ORDER)),
+                    help="TPC-H query numbers, comma-separated")
     ap.add_argument("--top", type=int, default=8)
     ap.add_argument("--out", default=None, help="also write the lines here")
     args = ap.parse_args()
@@ -131,7 +144,7 @@ def main() -> int:
     if args.lm:
         scale, runs = _lm_runs()
     elif args.clickbench:
-        eng = SiriusEngine(use_kernels=True)
+        eng = SiriusEngine(**ENGINES["eager"])
         from .data import clickbench as cb
         cb.load_into_engine(eng, cb.generate(CB_ROWS))
         cat = cb.clickbench_catalog(CB_ROWS)
@@ -139,13 +152,13 @@ def main() -> int:
         runs = {qid: (lambda sql=sql: eng.sql(sql, catalog=cat))
                 for qid, sql in cb.CLICKBENCH_QUERIES.items()}
     else:
-        eng = SiriusEngine(use_kernels=True)
+        eng = SiriusEngine(**ENGINES[args.engine])
         from .data.tpch import generate, load_into_engine
         from .data.tpch_queries import QUERIES
         load_into_engine(eng, generate(args.sf))
-        scale = {"sf": args.sf}
+        scale = {"sf": args.sf, "engine": args.engine}
         runs = {f"Q{qid}": (lambda q=QUERIES[qid]: eng.execute(q()))
-                for qid in ORDER}
+                for qid in map(int, args.queries.split(","))}
     lines = []
     for qid, run in runs.items():
         run()                                        # warm

@@ -33,11 +33,15 @@ def _factorize_core(arrs: Sequence[torch.Tensor]):
     """Lexsort-based exact factorization → (gids, rep rows, group count)."""
     n = arrs[0].shape[0]
     order = lexsort(arrs)
-    changed = torch.zeros(n, dtype=torch.bool, device=arrs[0].device)
-    changed[0] = True
+    # a group starts at the first row and wherever a key changes (built
+    # by concatenation: a scalar store would copy from the host, which a
+    # CUDA graph capture refuses)
+    diff = torch.zeros(n - 1, dtype=torch.bool, device=arrs[0].device)
     for a in arrs:
         s = a[order]
-        changed[1:] |= s[1:] != s[:-1]
+        diff |= s[1:] != s[:-1]
+    changed = torch.cat([torch.ones(1, dtype=torch.bool, device=diff.device),
+                         diff])
     gid_sorted = torch.cumsum(changed.to(torch.int64), 0) - 1
     gids = torch.zeros(n, dtype=torch.int64, device=changed.device)
     gids[order] = gid_sorted
@@ -54,10 +58,87 @@ def _factorize_core(arrs: Sequence[torch.Tensor]):
 _DENSE_DOMAIN_LIMIT = 1 << 21
 
 
-def segment_sum(data: torch.Tensor, ids: torch.Tensor, n: int) -> torch.Tensor:
+def segment_sum(data: torch.Tensor, ids: torch.Tensor, n: int,
+                segments=None) -> torch.Tensor:
+    """Per-segment sums.  On the card, floating-point data are summed by
+    ``fixed_point_segment_sum``, whose result does not depend on the order
+    of addition: float atomics add in whatever order the card runs them,
+    and two computations of one sum (Q15's revenue, and the maximum of it
+    its scalar subquery takes) must agree to the bit, as they do on the
+    reference's TPU and on the CPU.  Integers are exact in any order, and
+    the CPU adds in row order, so both keep ``index_add_``.  ``segments``
+    is ``sorted_segments(ids, n)`` where the caller has it."""
+    if data.is_cuda and data.dtype.is_floating_point:
+        return fixed_point_segment_sum(data, ids, n, segments)
     out = torch.zeros((n,) + tuple(data.shape[1:]), dtype=data.dtype,
                       device=data.device)
     return out.index_add_(0, ids, data)
+
+
+def sorted_segments(ids: torch.Tensor, n: int):
+    """(row order sorted by segment id, start and end of each of the ``n``
+    segments in that order), found by sort and binary search: no atomics."""
+    sorted_ids, order = torch.sort(ids)
+    g = torch.arange(n, device=ids.device, dtype=ids.dtype)
+    return (order, torch.searchsorted(sorted_ids, g),
+            torch.searchsorted(sorted_ids, g, right=True))
+
+
+def _int_segment_sum(v: torch.Tensor, segments) -> torch.Tensor:
+    """Exact per-segment sums of int64 ``v`` by a prefix sum over the rows
+    in segment order (integer addition gives one answer in any order)."""
+    order, starts, ends = segments
+    c = torch.cumsum(v[order], 0)
+    c = torch.cat([torch.zeros(1, dtype=c.dtype, device=c.device), c])
+    return c[ends] - c[starts]
+
+
+def _pow2(e: torch.Tensor) -> torch.Tensor:
+    """2.0 ** e (float64, exact) for integer tensors e in [-1022, 1023]."""
+    return ((e.to(torch.int64) + 1023) << 52).view(torch.float64)
+
+
+def fixed_point_segment_sum(data: torch.Tensor, ids: torch.Tensor, n: int,
+                            segments=None) -> torch.Tensor:
+    """Per-segment float sums (1-d ``data``) that do not depend on the order
+    of addition.
+
+    Each finite value is scaled by a power of two (chosen on the device
+    from the largest magnitude and the row count, so that no sum can
+    overflow) and split into an integer part and a fraction carried to
+    62 - log2(rows) more bits; both are summed exactly as int64 and
+    recombined in float64.  An integer-valued column sums exactly;
+    otherwise the per-row error is far below float64's own.  NaNs and
+    infinities are counted apart per segment and set the result as IEEE
+    addition would (NaN, or +inf and -inf together, give NaN)."""
+    device = data.device
+    rows = data.shape[0]
+    if rows == 0:
+        return torch.zeros(n, dtype=data.dtype, device=device)
+    if segments is None:
+        segments = sorted_segments(ids, n)
+    x = data.to(torch.float64)
+    finite = torch.isfinite(x)
+    xf = torch.where(finite, x, 0.0)
+    k = 62 - max(int(rows).bit_length(), 1)   # |scaled| < 2^k, rows < 2^(62-k)
+    top = torch.frexp(xf.abs().max()).exponent   # max |x| < 2^top
+    shift = torch.clamp(k - top, -1000, 1000)
+    q = xf * _pow2(shift)
+    whole = torch.floor(q)
+    frac = torch.round((q - whole) * 2.0 ** k)
+    total = ((_int_segment_sum(whole.to(torch.int64), segments).to(torch.float64)
+              + _int_segment_sum(frac.to(torch.int64), segments).to(torch.float64)
+              * 2.0 ** -k) * _pow2(-shift))
+    nan_pinf = _int_segment_sum(torch.isnan(x).to(torch.int64)
+                                + (torch.isposinf(x).to(torch.int64) << 32),
+                                segments)
+    ninf = _int_segment_sum(torch.isneginf(x).to(torch.int64), segments)
+    nan, pinf = (nan_pinf & 0xFFFFFFFF) > 0, (nan_pinf >> 32) > 0
+    ninf = ninf > 0
+    total = torch.where(pinf, float("inf"), total)
+    total = torch.where(ninf, float("-inf"), total)
+    total = torch.where(nan | (pinf & ninf), float("nan"), total)
+    return total.to(data.dtype)
 
 
 def segment_reduce(fn: str, data: torch.Tensor, ids: torch.Tensor,
@@ -98,7 +179,11 @@ def _dense_pack(arrs, n: int):
     packed = arrs[0] - los[0]
     for a, lo, card in zip(arrs[1:], los[1:], cards[1:]):
         packed = packed * card + (a - lo)
-    return packed, domain
+    # on a plan-cache replay the bounds are the recorded ones: should the
+    # data have moved under them, the replay's flags discard the result,
+    # but the scatters below must stay in range meanwhile (an index out of
+    # range is a device-side assert on the card)
+    return torch.clamp(packed, 0, domain - 1), domain
 
 
 def _dense_factorize(packed: torch.Tensor, domain: int):
@@ -129,9 +214,10 @@ def factorize_groups(table: Table, keys: Sequence[str]) -> Tuple[torch.Tensor, T
         gids, rep, n_groups = _dense_factorize(*dense)
     else:
         gids, rep, n_groups = _factorize_core(arrs)
-    rep_idx = rep[: pull_scalar(n_groups)]  # the factorization's scalar pull
-    uniq = Table({k: table[k].take(rep_idx) for k in keys})
-    return gids, uniq
+    n_groups = pull_scalar(n_groups)       # the factorization's scalar pull
+    uniq = Table({k: table[k].take(rep[:n_groups]) for k in keys})
+    # in range even under a stale recording (see _dense_pack)
+    return torch.clamp(gids, max=n_groups - 1), uniq
 
 
 def _count_distinct(gids: torch.Tensor, vals: torch.Tensor, n_groups: int):
@@ -145,9 +231,10 @@ def _count_distinct(gids: torch.Tensor, vals: torch.Tensor, n_groups: int):
     return segment_sum(first.to(torch.int64), g_s, n_groups)
 
 
-def _segment(fn: str, data: torch.Tensor, gids: torch.Tensor, n: int) -> torch.Tensor:
+def _segment(fn: str, data: torch.Tensor, gids: torch.Tensor, n: int,
+             segments=None) -> torch.Tensor:
     if fn == "sum":
-        return segment_sum(data, gids, n)
+        return segment_sum(data, gids, n, segments)
     if fn in ("min", "max"):
         return segment_reduce(fn, data, gids, n)
     raise ValueError(fn)
@@ -156,14 +243,16 @@ def _segment(fn: str, data: torch.Tensor, gids: torch.Tensor, n: int) -> torch.T
 def _reduce_all(gids, datas, fns: Sequence[str], n_groups: int):
     """Every segment reduction of one group-by → (counts f64, outputs)."""
     ones = torch.ones(gids.shape[0], dtype=torch.float64, device=gids.device)
-    counts = segment_sum(ones, gids, n_groups)
+    # on the card one sort of the group ids serves every float sum
+    segments = sorted_segments(gids, n_groups) if gids.is_cuda else None
+    counts = segment_sum(ones, gids, n_groups, segments)
     outs = []
     for fn, data in zip(fns, datas):
         if fn == "avg":
-            s = segment_sum(data.to(torch.float64), gids, n_groups)
+            s = segment_sum(data.to(torch.float64), gids, n_groups, segments)
             outs.append(s / torch.clamp(counts, min=1.0))
         else:
-            outs.append(_segment(fn, data, gids, n_groups))
+            outs.append(_segment(fn, data, gids, n_groups, segments))
     return counts, outs
 
 
@@ -233,6 +322,8 @@ def group_aggregate(
         if arrs is not None:
             gids, rep, ng = _factorize_core(arrs)
             n_groups = pull_scalar(ng)
+            # in range even under a stale recording (see _dense_pack)
+            gids = torch.clamp(gids, max=n_groups - 1)
             uniq = Table({key: table[key].take(rep[:n_groups])
                           for key in keys})
         else:

@@ -656,3 +656,115 @@ def test_topk_select_sized_tiles_on_card(dev, n):
         got = ops.topk_select(keys, k)
         assert build.launch_counts()["topk_select"] == 1
         assert torch.equal(got, ref.topk_select_ref(keys, k))
+
+
+# ---------------------------------------------------------------------------
+# the default path on the card: plan-cache replays as one CUDA graph
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def tpch_small():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.data.tpch import generate
+    return generate(0.01)
+
+
+def _loaded(db, **kw):
+    from repro_torch.core.executor import SiriusEngine
+    from repro_torch.data.tpch import load_into_engine
+    eng = SiriusEngine(**kw)
+    load_into_engine(eng, db)
+    return eng
+
+
+def _same(got: dict, want: dict) -> None:
+    assert set(got) == set(want)
+    for k in want:
+        if want[k].dtype.kind == "f":
+            np.testing.assert_allclose(got[k], want[k], rtol=1e-6, atol=1e-6)
+        else:
+            assert (got[k] == want[k]).all(), k
+
+
+@pytest.mark.parametrize("qid", [1, 3, 13, 15, 18, 22])
+def test_graph_replay_equals_closure_loop_and_eager_on_card(tpch_small, qid):
+    from repro_torch.core import instrument
+    from repro_torch.data.tpch_queries import QUERIES
+    eng = _loaded(tpch_small)
+    eager = _loaded(tpch_small, compile_pipelines=False)
+    want = eager.execute(QUERIES[qid]()).to_host()
+    _same(eng.execute(QUERIES[qid]()).to_host(), want)
+    barriers = instrument.sync_barriers.value
+    syncs = instrument.scalar_syncs.value
+    graph = eng.execute(QUERIES[qid]())
+    assert eng.executor.last_replay_mode == "graph"
+    assert instrument.sync_barriers.value - barriers == 1
+    assert instrument.scalar_syncs.value == syncs
+    _same(graph.to_host(), want)
+    # the result was cloned out of graph memory: a later replay leaves it
+    held = {k: v.copy() for k, v in graph.to_host().items()}
+    eng.execute(QUERIES[qid]())
+    _same(graph.to_host(), held)
+    entry = eng.executor.plan_cache._entries[eng.executor.last_plan_signature]
+    entry.compiled = None
+    closure = eng.execute(QUERIES[qid]()).to_host()
+    assert eng.executor.last_replay_mode == "closure"
+    _same(closure, want)
+
+
+def test_replay_after_register_rerecords_on_card(tpch_small):
+    from repro_torch.data.tpch_queries import QUERIES
+    eng = _loaded(tpch_small)
+    eng.execute(QUERIES[6]())
+    eng.execute(QUERIES[6]())
+    assert eng.executor.last_replay_mode == "graph"
+    eng.register("lineitem", eng.buffers.get("lineitem"))
+    got = eng.execute(QUERIES[6]()).to_host()
+    assert not eng.executor.last_plan_cache_hit
+    _same(got, _loaded(tpch_small, compile_pipelines=False).execute(
+        QUERIES[6]()).to_host())
+    eng.execute(QUERIES[6]())
+    assert eng.executor.last_replay_mode == "graph"
+
+
+def test_changed_recorded_scalar_raises_replay_mismatch_on_card(tpch_small):
+    """Data changed in place under a captured graph (no epoch bump): the
+    graph's folded flag is set, the replay raises ReplayMismatch once, and
+    the cold re-run answers for the new data."""
+    from repro_torch.data.tpch_queries import QUERIES
+    eng = _loaded(tpch_small)
+    eng.execute(QUERIES[6]())
+    eng.execute(QUERIES[6]())
+    assert eng.executor.last_replay_mode == "graph"
+    disc = eng.buffers.get("lineitem")["l_discount"].data
+    disc.fill_(0.06)                      # every row now in Q6's range
+    got = eng.execute(QUERIES[6]()).to_host()
+    stats = eng.executor.plan_cache.stats
+    assert stats["replay_mismatches"] == 1
+    assert not eng.executor.last_plan_cache_hit
+    eager = _loaded(tpch_small, compile_pipelines=False)
+    eager.register("lineitem", eng.buffers.get("lineitem"))
+    _same(got, eager.execute(QUERIES[6]()).to_host())
+    eng.execute(QUERIES[6]())
+    assert eng.executor.last_replay_mode == "graph"
+    assert stats["replay_mismatches"] == 1
+
+
+def test_fixed_point_sums_are_order_free_on_card(dev):
+    """The generic tier's float sums on the card: one answer whatever the
+    row order, integer-valued columns exact, within 1e-12 of float64."""
+    from repro_torch.relational.aggregate import segment_sum
+    rng = np.random.default_rng(15)
+    n = 1_000_000
+    ids = torch.from_numpy(rng.integers(0, 7, n)).to(dev)
+    x = torch.from_numpy(rng.integers(90000, 10494950, n) / 100.0).to(dev)
+    q = torch.from_numpy(rng.integers(1, 51, n).astype(np.float64)).to(dev)
+    perm = torch.from_numpy(rng.permutation(n)).to(dev)
+    a = segment_sum(x, ids, 7)
+    assert torch.equal(a, segment_sum(x[perm], ids[perm], 7))
+    want = torch.zeros(7, dtype=torch.float64).index_add_(0, ids.cpu(), x.cpu())
+    assert float(((a.cpu() - want).abs() / want).max()) < 1e-12
+    exact = torch.zeros(7, dtype=torch.float64).index_add_(0, ids.cpu(), q.cpu())
+    assert torch.equal(segment_sum(q, ids, 7).cpu(), exact)

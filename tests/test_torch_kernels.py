@@ -501,3 +501,78 @@ def test_x64_reference_is_active():
     # the reference's dtype contract (int64 keys, f64 money) needs x64 on
     import repro.relational.table  # noqa: F401 — turns x64 on at import
     assert jax.config.jax_enable_x64
+
+
+# ---------------------------------------------------------------------------
+# the probe lowerings' plain glue (``ops.py``), against the reference's jnp
+# ---------------------------------------------------------------------------
+
+
+def _padded_keys(rng, n, nb, lo, hi, unique):
+    keys = (rng.permutation(np.arange(lo, hi))[:n] if unique
+            else rng.integers(lo, hi, n)).astype(np.int64)
+    padded = np.zeros(nb, np.int64)
+    padded[:n] = keys
+    return padded, np.arange(nb) < n
+
+
+@pytest.mark.parametrize("unique", [True, False])
+def test_key_bounds_and_direct_build_lookup_match_jnp(unique):
+    rng = np.random.default_rng(17)
+    kp, valid = _padded_keys(rng, 300, 512, 1000, 1600, unique)
+    mine = ops.key_bounds(torch.from_numpy(kp), torch.from_numpy(valid))
+    want = jops.key_bounds(jnp.asarray(kp), jnp.asarray(valid))
+    assert [int(x) for x in mine] == [int(x) for x in want]
+    lo, domain = int(want[0]), 1024
+    slot, dup = ops.direct_build(torch.from_numpy(kp), torch.from_numpy(valid),
+                                 torch.tensor(lo), domain)
+    jslot, jdup = jops.direct_build(jnp.asarray(kp), jnp.asarray(valid),
+                                    jnp.asarray(lo), domain)
+    np.testing.assert_array_equal(slot.numpy(), np.asarray(jslot))
+    assert bool(dup) == bool(jdup) == (not unique)
+    probe = rng.integers(900, 1700, 2000).astype(np.int64)
+    row, found = ops.direct_lookup(slot, torch.tensor(lo), torch.from_numpy(probe))
+    jrow, jfound = jops.direct_lookup(jslot, jnp.asarray(lo), jnp.asarray(probe))
+    np.testing.assert_array_equal(row.numpy(), np.asarray(jrow))
+    np.testing.assert_array_equal(found.numpy(), np.asarray(jfound))
+
+
+def test_sorted_lookup_matches_jnp():
+    rng = np.random.default_rng(18)
+    kp, valid = _padded_keys(rng, 300, 512, -10**12, 10**12, False)
+    s, order, _, _, _ = ops.sorted_build(torch.from_numpy(kp),
+                                         torch.from_numpy(valid))
+    js, jorder, _, _, _ = jops.sorted_build(jnp.asarray(kp), jnp.asarray(valid))
+    probe = np.concatenate([kp[:150], rng.integers(-10**12, 10**12, 500)])
+    row, found = ops.sorted_lookup(s, order, torch.from_numpy(probe))
+    jrow, jfound = jops.sorted_lookup(js, jorder, jnp.asarray(probe))
+    np.testing.assert_array_equal(row.numpy(), np.asarray(jrow))
+    np.testing.assert_array_equal(found.numpy(), np.asarray(jfound))
+
+
+def test_factorize_and_hash_probe_int64_match_jnp():
+    rng = np.random.default_rng(19)
+    build_keys = rng.choice(10**15, 700, replace=False).astype(np.int64)
+    probe_keys = np.concatenate([build_keys[::3],
+                                 rng.integers(0, 10**15, 900)]).astype(np.int64)
+    b, p = ops.factorize_keys_int32(build_keys, probe_keys)
+    jb, jp = jops.factorize_keys_int32(build_keys, probe_keys)
+    np.testing.assert_array_equal(b, jb)
+    np.testing.assert_array_equal(p, jp)
+    db, dp, uni = ops.factorize_keys_int32_device(torch.from_numpy(build_keys),
+                                                  torch.from_numpy(probe_keys))
+    jdb, jdp, juni = jops.factorize_keys_int32_device(jnp.asarray(build_keys),
+                                                      jnp.asarray(probe_keys))
+    np.testing.assert_array_equal(db.numpy(), np.asarray(jdb))
+    np.testing.assert_array_equal(dp.numpy(), np.asarray(jdp))
+    np.testing.assert_array_equal(uni.numpy(), np.asarray(juni))
+    sk, sr, placed = ops.build_table32(torch.from_numpy(b))
+    assert bool(placed)
+    row, found = ops.hash_probe_int64(torch.from_numpy(p), torch.from_numpy(b),
+                                      sk, sr)
+    jrow, jfound = jops.hash_probe_int64(jnp.asarray(p), jnp.asarray(b),
+                                         jnp.asarray(sk.numpy()),
+                                         jnp.asarray(sr.numpy()))
+    np.testing.assert_array_equal(row.numpy(), np.asarray(jrow))
+    np.testing.assert_array_equal(found.numpy(), np.asarray(jfound))
+    assert int(found.sum()) == len(build_keys[::3])

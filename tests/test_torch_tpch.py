@@ -1,11 +1,14 @@
-"""TPC-H Q1, Q3, Q5 and Q6 on the port, against the JAX package, on the CPU.
+"""The 22 TPC-H queries on the port, against the JAX package, on the CPU.
 
 The port's engine runs with ``device="cpu"`` (each kernel wrapper then runs
-its plain version), with and without the kernel backend.  Its results are
-held against the reference engine (``use_kernels=True``,
-``compile_pipelines=False``, the eager path the port mirrors) and against
-the numpy oracle ``FallbackEngine`` with the suite's tolerance (rtol 1e-6,
-other columns row-exact); its kernel hit counts against the reference's.
+its plain version), with and without the kernel backend, on the default
+(compiled, plan-cached) path and on the eager ``compile_pipelines=False``
+path.  Its results are held against the reference engine
+(``use_kernels=True``, ``compile_pipelines=False``) and against the numpy
+oracle ``FallbackEngine`` with the suite's tolerance (rtol 1e-6, other
+columns row-exact); the eager path's kernel hit counts against the
+reference's eager path (``tests/test_torch_tpch_compiled.py`` holds the
+default path's against the reference's default path).
 """
 import jax  # noqa: F401 — both packages in one process, JAX on the CPU
 import numpy as np
@@ -32,12 +35,26 @@ from conftest import assert_tables_equal
 torch.set_num_threads(1)
 
 QIDS = sorted(QUERIES)
-# kernel hits per query at SF0.01 on the reference engine
+
+
+def _hits(filter=0, probe=0, agg=0, expand=0, topk=0) -> dict:
+    return dict(filter=filter, probe=probe, agg=agg, expand=expand, topk=topk)
+
+
+# kernel hits per query at SF0.01 on the reference engine's eager path
+# (use_kernels=True, compile_pipelines=False)
 EXPECTED_HITS = {
-    1: dict(filter=1, probe=0, agg=1, expand=0, topk=0),
-    3: dict(filter=2, probe=2, agg=1, expand=0, topk=0),
-    5: dict(filter=1, probe=4, agg=1, expand=1, topk=0),
-    6: dict(filter=1, probe=0, agg=1, expand=0, topk=0),
+    1: _hits(filter=1, agg=1), 2: _hits(probe=7, agg=1),
+    3: _hits(filter=2, probe=2, agg=1), 4: _hits(filter=1, agg=1),
+    5: _hits(filter=1, probe=4, agg=1, expand=1), 6: _hits(filter=1, agg=1),
+    7: _hits(filter=1, probe=5, agg=1), 8: _hits(filter=1, probe=7, agg=1),
+    9: _hits(probe=4, agg=1, expand=1), 10: _hits(filter=1, probe=3),
+    11: _hits(probe=4, agg=2), 12: _hits(probe=1, agg=1),
+    13: _hits(agg=2, expand=1), 14: _hits(filter=1, probe=1, agg=1),
+    15: _hits(filter=3, probe=1, agg=3), 16: _hits(probe=2),
+    17: _hits(probe=2, agg=2), 18: _hits(probe=3, agg=1), 19: _hits(probe=1),
+    20: _hits(filter=1, probe=2, agg=1, expand=1), 21: _hits(probe=5, agg=1),
+    22: _hits(filter=1, agg=2),
 }
 
 
@@ -73,7 +90,8 @@ def _engine(db, **kw):
 
 @pytest.fixture(scope="module")
 def engines(db):
-    return {uk: _engine(db, use_kernels=uk) for uk in (False, True)}
+    return {(uk, cp): _engine(db, use_kernels=uk, compile_pipelines=cp)
+            for uk in (False, True) for cp in (False, True)}
 
 
 def test_generate_gives_identical_arrays(db):
@@ -87,18 +105,36 @@ def test_generate_gives_identical_arrays(db):
             np.testing.assert_array_equal(got, want, err_msg=f"{table}.{col}")
 
 
+def _check_query(eng, qid, reference, oracle):
+    for _ in range(2):     # cold, then warm
+        got = eng.execute(QUERIES[qid]()).to_host()
+        assert_tables_equal(got, reference[qid][0])
+        assert_tables_equal(got, oracle[qid])
+
+
 @pytest.mark.parametrize("use_kernels", [False, True])
 @pytest.mark.parametrize("qid", QIDS)
 def test_query_matches_reference_and_oracle(qid, use_kernels, engines,
                                             reference, oracle):
-    got = engines[use_kernels].execute(QUERIES[qid]()).to_host()
-    assert_tables_equal(got, reference[qid][0])
-    assert_tables_equal(got, oracle[qid])
+    """The default path, cold and then warm (a plan-cache replay)."""
+    eng = engines[use_kernels, True]
+    _check_query(eng, qid, reference, oracle)
+    assert eng.executor.last_plan_cache_hit
+
+
+@pytest.mark.parametrize("use_kernels", [False, True])
+@pytest.mark.parametrize("qid", QIDS)
+def test_eager_path_matches_reference_and_oracle(qid, use_kernels, engines,
+                                                 reference, oracle):
+    eng = engines[use_kernels, False]
+    _check_query(eng, qid, reference, oracle)
+    assert not eng.executor.last_plan_cache_hit
 
 
 @pytest.mark.parametrize("qid", QIDS)
 def test_kernel_hits_match_reference(qid, db, reference):
-    eng = _engine(db, use_kernels=True)
+    """The eager path's hits against the reference's eager path."""
+    eng = _engine(db, use_kernels=True, compile_pipelines=False)
     eng.execute(QUERIES[qid]())
     assert eng.backend.hit_counts() == reference[qid][1] == EXPECTED_HITS[qid]
 
@@ -120,11 +156,27 @@ def test_profile_mode_times_operators_and_matches(qid, db, oracle):
         assert times["join"] > 0
 
 
+def _waits_once(eng, qid):
+    eng.execute(QUERIES[qid]())
+    before = instrument.sync_barriers.value
+    syncs = instrument.scalar_syncs.value
+    eng.execute(QUERIES[qid]())
+    assert eng.executor.last_plan_cache_hit
+    assert instrument.sync_barriers.value - before == 1
+    assert instrument.scalar_syncs.value == syncs
+
+
 @pytest.mark.parametrize("qid", QIDS)
 def test_default_path_waits_once_per_query(qid, engines):
-    before = instrument.sync_barriers.value
-    engines[True].execute(QUERIES[qid]())
-    assert instrument.sync_barriers.value - before == 1
+    """A warm run of the default path waits once (its final barrier) and
+    pulls no scalar; a cold run of a query with scalar subqueries waits
+    once more for each subquery, whose value becomes a literal."""
+    _waits_once(engines[True, True], qid)
+
+
+@pytest.mark.parametrize("qid", QIDS)
+def test_default_path_waits_once_per_query_without_kernels(qid, engines):
+    _waits_once(engines[False, True], qid)
 
 
 @pytest.mark.parametrize("qid", QIDS)
@@ -146,7 +198,7 @@ def test_topk_route_raises_where_the_reference_launches_its_kernel(engines):
     the kernel's contract it declines, as the reference does."""
     from repro_torch.relational.sort import SortKey, sort_table
     from repro_torch.relational.table import Table
-    backend = engines[True].backend
+    backend = engines[True, True].backend
     t = Table.from_pydict({"a": np.arange(500, dtype=np.int64),
                            "f": np.linspace(0, 1, 500)})
     before = backend.topk_hits

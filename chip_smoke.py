@@ -69,6 +69,28 @@ nothing of JAX or of the JAX package ``repro``, and:
    scale, checks that ``groupby_sum`` and ``topk_select`` launched in this
    phase, compares the results as in phase 4, and counts device→host copies
    inside pipelines on a warm run of each string query (must be 0);
+5b. drives the drop-in front door: the 37 golden Substrait wire plans of
+   ``tests/golden/substrait`` (read as data files) through
+   ``SiriusEngine.accelerate`` on phase 4's SF1 tensors and phase 5's
+   ``hits`` table, registered again with their host dicts.  The 22 TPC-H
+   wires run on ``SiriusEngine(use_kernels=True)`` and ``SiriusEngine()``,
+   the 15 ClickBench wires on the kernel engine: each cold once and warm
+   twice, then the same query's SQL text on the same engine, every result
+   held against the eager engine's ``sql()`` as in phase 4; each report
+   one device fragment with no boundary bytes; each warm run a plan-cache
+   hit by the wire bytes with one barrier and no scalar sync, one CUDA
+   graph on ``SiriusEngine()``; no device→host copy inside a pipeline; the
+   cold run's kernel hits equal to the SQL text's on the same plan (phase
+   4b's first call, or the text through the default catalog where the
+   engine's dictionary-costed optimizer chose another plan) and, for
+   ClickBench, ``CB_AGG`` / ``CB_TOPK``.  Then four hybrid plans of
+   ``tests/test_substrait.py`` (a ``row_number`` window, a ``UNION ALL``,
+   Q13 with LIKE host-only, a host-rooted window sum) on the kernel
+   engine: the reference's fragment placements and deps, boundary bytes
+   equal to the buffer manager's counters, results against the port's
+   ``FallbackEngine`` on the host dicts (Q13: the eager ``sql()``), each
+   fragment's seconds.  No plan may fall back; the five SQL kernels must
+   launch in the phase;
 6. drives the LM serving path: ``serve_lm``'s workload (``llama3.2-3b``
    at full width, 28 layers, random bf16 weights from its seed) on the
    card.  For models and tokens from three seeds, teacher-forced
@@ -201,6 +223,8 @@ PATH_KERNELS = {
     "tpch": ("filter_mask_counts", "groupby_sum", "hash_probe", "join_expand"),
     "clickbench": ("groupby_sum", "topk_select"),
     "lm_serve": ("decode_attention",),
+    "front_door": ("filter_mask_counts", "groupby_sum", "hash_probe",
+                   "join_expand", "topk_select"),
 }
 
 # decode_attention in bf16 against the plain version on float32 inputs:
@@ -957,7 +981,7 @@ def run_main_path() -> dict:
         per_query.append(row)
     tables = {name: eng.buffers.get(name) for name in db}
     return {"launches": launches, "queries": per_query,
-            "generate_s": t_gen, "load_s": t_load}, tables
+            "generate_s": t_gen, "load_s": t_load}, tables, db
 
 
 # ---------------------------------------------------------------------------
@@ -1078,13 +1102,23 @@ def run_compiled_path(tables: dict) -> dict:
         parses.append(1)
         return run_sql(*args, **kwargs)
 
+    # the kernel engine's first call of each text: its kernel hits and plan
+    # signature, which phase 5b holds the front door's cold runs against
+    sql_runs = {}
     port_sql.run_sql = counting_run_sql
     try:
         for qid in sorted(SQL_QUERIES):
             want = yard.execute(QUERIES[qid]()).to_host()
             for label, e in engines.items():
                 n0 = len(parses)
+                before = e.backend.hit_counts() if e.backend else None
                 compare_tables(e.sql(SQL_QUERIES[qid]).to_host(), want)
+                if before is not None:
+                    after = e.backend.hit_counts()
+                    sql_runs[qid] = {
+                        "hits": {k: after[k] - before[k] for k in after},
+                        "signature": e.executor.last_plan_signature,
+                        "cold": not e.executor.last_plan_cache_hit}
                 compare_tables(e.sql(SQL_QUERIES[qid]).to_host(), want)
                 if len(parses) - n0 != 1 or not e.executor.last_plan_cache_hit:
                     raise AssertionError(f"SQL Q{qid} ({label}): the second "
@@ -1115,7 +1149,8 @@ def run_compiled_path(tables: dict) -> dict:
               "capture_failures": graph_ex.capture_failures,
               "capture_errors": graph_ex.capture_errors}
     emit({"phase": "compiled_memory", **memory})
-    return {"launches": launches, "queries": rows, "memory": memory}
+    return {"launches": launches, "queries": rows, "memory": memory,
+            "sql_runs": sql_runs}
 
 
 # ---------------------------------------------------------------------------
@@ -1212,7 +1247,316 @@ def run_clickbench() -> dict:
     if int(runs["q0"]["out"]["c"][0]) != CB_ROWS:
         raise AssertionError(f"q0 counted {runs['q0']['out']['c']} rows")
     return {"launches": launches, "queries": per_query,
-            "generate_s": t_gen, "load_s": t_load}
+            "generate_s": t_gen, "load_s": t_load}, hits_table, db
+
+
+# ---------------------------------------------------------------------------
+# phase 5b: the drop-in front door (Substrait wire plans through accelerate)
+# ---------------------------------------------------------------------------
+
+
+def _golden_wire(name: str) -> bytes:
+    return (ROOT / "tests" / "golden" / "substrait" / f"{name}.json").read_bytes()
+
+
+def _hybrid_plans():
+    """The reference tests' hybrid plans (``tests/test_substrait.py``):
+    name → (plan builder, registry, placements, deps, boundary bytes that
+    must be positive: to host, to device)."""
+    from repro_torch.core.plan import (AggregateRel, FilterRel, ReadRel,
+                                       SetRel, WindowRel)
+    from repro_torch.data.tpch_queries import SQL_QUERIES
+    from repro_torch.relational.aggregate import AggSpec
+    from repro_torch.relational.expressions import BinOp, Col, Lit
+    from repro_torch.relational.sort import SortKey
+    from repro_torch.sql import sql_to_plan
+    from repro_torch.substrait import CapabilityRegistry
+
+    def window():
+        return FilterRel(
+            WindowRel(ReadRel("lineitem", ["l_orderkey", "l_quantity"]),
+                      ["l_orderkey"], [SortKey("l_quantity", False)],
+                      "row_number", None, "rn"),
+            BinOp("==", Col("rn"), Lit(1)))
+
+    def union():
+        halves = [ReadRel("orders", ["o_orderkey", "o_totalprice"],
+                          filter=cond)
+                  for cond in (Col("o_orderkey") <= Lit(1000),
+                               Col("o_orderkey") > Lit(1000))]
+        return AggregateRel(SetRel(halves), [],
+                            [AggSpec("count_star", None, "n"),
+                             AggSpec("sum", Col("o_totalprice"), "s")])
+
+    def host_rooted():
+        return WindowRel(ReadRel("lineitem", ["l_orderkey", "l_quantity"]),
+                         ["l_orderkey"], [], "sum", "l_quantity", "s")
+
+    return {
+        "window_row_number": (window, None, ["device", "host", "device"],
+                              [[], [0], [1]], (True, True)),
+        "union_all": (union, None, ["device", "device", "host", "device"],
+                      [[], [], [0, 1], [2]], (True, True)),
+        # the host fragment scans orders from the engine's host copy, so
+        # nothing crosses to the host
+        "q13_without_like": (lambda: sql_to_plan(SQL_QUERIES[13]),
+                             CapabilityRegistry(host_only_exprs=["Like"]),
+                             ["host", "device"], [[], [0]], (False, True)),
+        "host_rooted_window_sum": (host_rooted, None, ["device", "host"],
+                                   [[], [0]], (True, True)),
+    }
+
+
+def run_front_door(card: str, tpch_tables: dict, tpch_db: dict,
+                   cb_table, cb_db: dict, sql_runs: dict) -> dict:
+    """The 37 golden wire plans and four hybrid plans through
+    ``SiriusEngine.accelerate`` on the data phases 4 and 5 loaded
+    (registered again with their host dicts, not regenerated)."""
+    import torch
+    from repro_torch.core import instrument
+    from repro_torch.core.executor import SiriusEngine
+    from repro_torch.core.fallback import FallbackEngine
+    from repro_torch.data import clickbench as cb
+    from repro_torch.data.tpch_queries import SQL_QUERIES
+    from repro_torch.kernels import build
+    from repro_torch.sql import run_sql
+    from repro_torch.sql.binder import DEFAULT_CATALOG
+    from repro_torch.substrait import HybridRouter, emit as wire_emit, ingest
+
+    t_phase = time.perf_counter()
+
+    def engine(tables, host, **kw):
+        e = SiriusEngine(**kw)
+        for name, t in tables.items():
+            e.register(name, t, host[name])
+        return e
+
+    def timed(fn):
+        t = time.perf_counter()
+        out = fn()
+        return out, (time.perf_counter() - t) * 1e3
+
+    def hits_of(e, fn):
+        before = e.backend.hit_counts()
+        out = fn()
+        after = e.backend.hit_counts()
+        return out, {k: after[k] - before[k] for k in after}
+
+    def warm_wire(e, blob, what):
+        syncs = instrument.scalar_syncs.value
+        barriers = instrument.sync_barriers.value
+        out, ms = timed(lambda: e.accelerate(blob))
+        report = e.last_accelerate_report
+        if not report.get("plan_cache_hit") or not e.executor.last_plan_cache_hit:
+            raise AssertionError(f"{what}: a warm wire missed the plan cache")
+        got = (instrument.scalar_syncs.value - syncs,
+               instrument.sync_barriers.value - barriers)
+        if got != (0, 1):
+            raise AssertionError(f"{what}: a warm wire took {got[0]} scalar "
+                                 f"syncs and {got[1]} barriers, not 0 and 1")
+        return out, ms, e.executor.last_replay_mode
+
+    def all_device(report, what):
+        got = (report["device_fragments"], report["host_fragments"],
+               report["device_rel_fraction"], report["boundary_to_host_bytes"],
+               report["boundary_to_device_bytes"])
+        if got != (1, 0, 1.0, 0, 0):
+            raise AssertionError(f"{what}: report {got}, not one device "
+                                 f"fragment and no boundary bytes")
+
+    def wire_runs(e, blob, want, what, sql_fn):
+        """Cold once, warm twice, then the same query's SQL text on the
+        same engine, cold and warm twice; every result held against
+        ``want``.  On the kernel engine, the cold run's kernel hits."""
+        before = e.backend.hit_counts() if e.backend else None
+        out, cold_ms = timed(lambda: e.accelerate(blob))
+        hits = None
+        if before is not None:
+            after = e.backend.hit_counts()
+            hits = {k: after[k] - before[k] for k in after}
+        all_device(e.last_accelerate_report, what)
+        if out.device != e.device:
+            raise AssertionError(f"{what}: the result is on {out.device}")
+        err, _ = compare_tables(out.to_host(), want)
+        signature = e.executor.last_plan_signature
+        warms, modes = [], set()
+        for _ in range(2):
+            w, ms, mode = warm_wire(e, blob, what)
+            compare_tables(w.to_host(), want)
+            warms.append(ms)
+            modes.add(mode)
+        all_device(e.last_accelerate_report, what)
+        with instrument.track_transfers() as counter:
+            warm_wire(e, blob, what)
+        sql_ms = []
+        for _ in range(3):
+            o, ms = timed(sql_fn)
+            compare_tables(o.to_host(), want)
+            sql_ms.append(ms)
+        # the front door's own host steps of a cold run, apart
+        ingest_ms = statistics.median(timed(lambda: ingest(blob))[1]
+                                      for _ in range(5))
+        plan = ingest(blob)
+        route_ms = statistics.median(
+            timed(lambda: HybridRouter(e).plan_fragments(plan))[1]
+            for _ in range(5))
+        (mode,) = modes
+        return {"cold_ms": cold_ms, "warm_ms": statistics.median(warms),
+                "ingest_ms": ingest_ms, "route_ms": route_ms,
+                "sql_cold_ms": sql_ms[0],
+                "sql_warm_ms": statistics.median(sql_ms[1:]),
+                "replay": mode, "max_rel_err": err,
+                "in_pipeline_copies": counter.in_pipeline,
+                "signature": signature,
+                **({"hits": hits} if hits is not None else {})}
+
+    build.reset_launch_counts()
+    yard = engine(tpch_tables, tpch_db, use_kernels=False,
+                  compile_pipelines=False)
+    engines = {"kernels": engine(tpch_tables, tpch_db, use_kernels=True),
+               "graph": engine(tpch_tables, tpch_db, use_kernels=False)}
+    fresh_sql = None             # a kernel engine for cold SQL-text hits
+    tpch_rows = []
+    for qid in sorted(SQL_QUERIES):
+        blob = _golden_wire(f"tpch_q{qid}")
+        text = SQL_QUERIES[qid]
+        want = yard.sql(text).to_host()
+        row = {"query": f"Q{qid}", "card": card,
+               "rows": len(next(iter(want.values())))}
+        for label, e in engines.items():
+            what = f"wire Q{qid} ({label})"
+            r = wire_runs(e, blob, want, what, lambda e=e: e.sql(text))
+            if r["in_pipeline_copies"]:
+                raise AssertionError(f"{what}: {r['in_pipeline_copies']} "
+                                     f"device-to-host copies in pipelines")
+            want_mode = ("graph" if label == "graph"
+                         and qid in EXPECTED_GRAPH_QIDS else "closure")
+            if r["replay"] != want_mode:
+                raise AssertionError(
+                    f"{what}: replayed by {r['replay']}, expected "
+                    f"{want_mode}; capture errors: "
+                    f"{e.executor.capture_errors}")
+            row[label] = r
+        # the cold wire's kernel hits against the SQL text's on the same
+        # plan: phase 4b's first call where the engine's dictionary-costed
+        # optimizer chose the wire's plan, else the text through the
+        # default catalog (the wire's own producer) on a fresh engine
+        sql_run = sql_runs.get(qid)
+        if (sql_run and sql_run["cold"]
+                and sql_run["signature"] == row["kernels"]["signature"]):
+            want_hits, source = sql_run["hits"], "phase 4b sql()"
+        else:
+            if fresh_sql is None:
+                fresh_sql = engine(tpch_tables, tpch_db, use_kernels=True)
+            _, want_hits = hits_of(fresh_sql, lambda: run_sql(text, fresh_sql))
+            if fresh_sql.executor.last_plan_signature != \
+                    row["kernels"]["signature"]:
+                raise AssertionError(f"Q{qid}: the default catalog's plan is "
+                                     f"not the golden wire's")
+            source = "run_sql, default catalog"
+        row["sql_hits"], row["sql_hits_from"] = want_hits, source
+        if row["kernels"]["hits"] != want_hits:
+            raise AssertionError(f"wire Q{qid}: kernel hits "
+                                 f"{row['kernels']['hits']}, the SQL path's "
+                                 f"on the same plan ({source}) {want_hits}")
+        for label in engines:
+            del row[label]["signature"]
+        emit({"phase": "front_door_tpch", **row})
+        tpch_rows.append(row)
+
+    # ClickBench: the 15 wires on the kernel engine at CB_ROWS rows
+    cat = cb.clickbench_catalog(CB_ROWS)
+    cb_yard = SiriusEngine(use_kernels=False, compile_pipelines=False)
+    cb_yard.register("hits", cb_table)
+    cb_eng = SiriusEngine(use_kernels=True)
+    cb_eng.register("hits", cb_table, cb_db["hits"])
+    cb_rows = []
+    for qid in cb.CLICKBENCH_QUERIES:
+        text = cb.CLICKBENCH_QUERIES[qid]
+        want = cb_yard.sql(text, catalog=cat).to_host()
+        what = f"wire ClickBench {qid}"
+        r = wire_runs(cb_eng, _golden_wire(f"clickbench_{qid}"), want, what,
+                      lambda: cb_eng.sql(text, catalog=cat))
+        want_hits = _hits(agg=int(qid in CB_AGG), topk=int(qid in CB_TOPK))
+        if r["hits"] != want_hits:
+            raise AssertionError(f"{what}: kernel hits {r['hits']}, the SQL "
+                                 f"path's {want_hits}")
+        if qid in cb.CLICKBENCH_STRING_QIDS and r["in_pipeline_copies"]:
+            raise AssertionError(f"{what}: {r['in_pipeline_copies']} "
+                                 f"device-to-host copies in pipelines")
+        del r["signature"]
+        row = {"query": qid, "card": card,
+               "rows": len(next(iter(want.values()))), "kernels": r}
+        emit({"phase": "front_door_clickbench", **row})
+        cb_rows.append(row)
+
+    # four hybrid plans at SF1 on the kernel engine
+    kern = engines["kernels"]
+    hybrid_rows = []
+    for name, (plan, registry, placements, deps, positive) in \
+            _hybrid_plans().items():
+        blob = wire_emit(plan(), DEFAULT_CATALOG)
+        h0 = kern.buffers.boundary_to_host_bytes
+        d0 = kern.buffers.boundary_to_device_bytes
+        got, ms = timed(lambda: kern.accelerate(blob, registry=registry))
+        report = kern.last_accelerate_report
+        got_place = [f["placement"] for f in report["fragments"]]
+        got_deps = [f["deps"] for f in report["fragments"]]
+        if (got_place, got_deps) != (placements, deps):
+            raise AssertionError(f"{name}: fragments {got_place} deps "
+                                 f"{got_deps}, the reference's {placements} "
+                                 f"{deps}")
+        moved = (report["boundary_to_host_bytes"],
+                 report["boundary_to_device_bytes"])
+        if moved != (kern.buffers.boundary_to_host_bytes - h0,
+                     kern.buffers.boundary_to_device_bytes - d0):
+            raise AssertionError(f"{name}: report {moved} is not the buffer "
+                                 f"manager's counters' delta")
+        if tuple(b > 0 for b in moved) != positive:
+            raise AssertionError(f"{name}: boundary bytes {moved}")
+        if got.device != kern.device:
+            raise AssertionError(f"{name}: the result is on {got.device}")
+        # the oracle: the port's FallbackEngine on the host dicts (Q13: the
+        # eager engine's sql())
+        if name == "q13_without_like":
+            want, oracle_ms = timed(lambda: yard.sql(SQL_QUERIES[13]).to_host())
+        else:
+            want, oracle_ms = timed(lambda: FallbackEngine(tpch_db).execute(plan()))
+        err, _ = compare_tables(got.to_host(), want)
+        # each fragment's seconds: the router once more, with analyze
+        again, frag_report = HybridRouter(kern, registry).execute(
+            ingest(blob), analyze=True)
+        row = {"plan": name, "card": card,
+               "rows": len(next(iter(want.values()))),
+               "accelerate_ms": ms, "oracle_ms": oracle_ms,
+               "oracle": "sql() eager" if name == "q13_without_like"
+               else "FallbackEngine",
+               "fragments": [{**f, **{k: v for k, v in g.items()
+                                      if k in ("seconds", "rows_out")}}
+                             for f, g in zip(report["fragments"],
+                                             frag_report["fragments"])],
+               "device_rel_fraction": report["device_rel_fraction"],
+               "boundary_to_host_bytes": moved[0],
+               "boundary_to_device_bytes": moved[1], "max_rel_err": err}
+        emit({"phase": "front_door_hybrid", **row})
+        hybrid_rows.append(row)
+        del got, again
+
+    launches = build.launch_counts()
+    fallbacks = sum(e.executor.fallback_queries
+                    for e in (yard, cb_yard, cb_eng, *engines.values()))
+    if fallbacks:
+        raise AssertionError(f"{fallbacks} plans fell back to the host")
+    missing = [k for k in PATH_KERNELS["front_door"] if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the front door: "
+                             f"{missing}")
+    seconds = time.perf_counter() - t_phase
+    emit({"phase": "front_door", "card": card, "seconds": seconds,
+          "launches": launches, "fallback_queries": fallbacks})
+    return {"launches": launches, "tpch": tpch_rows, "clickbench": cb_rows,
+            "hybrid": hybrid_rows, "seconds": seconds}
+
 
 
 # ---------------------------------------------------------------------------
@@ -1384,14 +1728,19 @@ def main() -> int:
         emit({"phase": "kernel", **row})
         kernels.append(row)
 
-    report["main_path"], tables = run_main_path()
+    report["main_path"], tables, tpch_db = run_main_path()
     report["compiled_path"] = run_compiled_path(tables)
-    del tables
-    report["clickbench"] = run_clickbench()
+    report["clickbench"], cb_table, cb_db = run_clickbench()
+    report["front_door"] = run_front_door(
+        card, tables, tpch_db, cb_table, cb_db,
+        report["compiled_path"].pop("sql_runs"))
+    del tables, tpch_db, cb_table, cb_db
+    torch.cuda.empty_cache()
     report["lm_serve"] = run_lm_serve(card, dev)
     by_path = {"tpch": report["main_path"]["launches"],
                "tpch_compiled": report["compiled_path"]["launches"],
                "clickbench": report["clickbench"]["launches"],
+               "front_door": report["front_door"]["launches"],
                "lm_serve": report["lm_serve"]["launches"]}
     line = []
     for row in kernels:

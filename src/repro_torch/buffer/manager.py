@@ -61,6 +61,11 @@ class BufferManager:
         # execution itself must contribute nothing (see core.instrument)
         self.cold_copy_bytes = 0
         self.host_transfer_bytes = 0
+        # hybrid-router fragment boundary traffic (substrait.router): tables
+        # handed between device fragments and host-fallback fragments.
+        # Pure-device plans must leave both at zero.
+        self.boundary_to_host_bytes = 0
+        self.boundary_to_device_bytes = 0
 
     # -- caching region -----------------------------------------------------
     def cache_table(self, name: str, table: Table) -> Table:
@@ -139,6 +144,19 @@ class BufferManager:
         self.host_transfer_bytes += e.nbytes
         METRICS.counter("buffers.promote_bytes").inc(e.nbytes)
 
+    # -- hybrid fragment boundary accounting ----------------------------------
+    def account_boundary_to_host(self, nbytes: int) -> None:
+        """A device fragment's output crossed to a host fragment."""
+        self.boundary_to_host_bytes += nbytes
+        self.host_transfer_bytes += nbytes
+        METRICS.counter("buffers.boundary_to_host_bytes").inc(nbytes)
+
+    def account_boundary_to_device(self, nbytes: int) -> None:
+        """A host fragment's output crossed back onto the device."""
+        self.boundary_to_device_bytes += nbytes
+        self.host_transfer_bytes += nbytes
+        METRICS.counter("buffers.boundary_to_device_bytes").inc(nbytes)
+
     # -- processing region ----------------------------------------------------
     def alloc_processing(self, nbytes: int) -> None:
         if self.processing_used + nbytes > self.processing_capacity:
@@ -172,5 +190,7 @@ class BufferManager:
             promotions=self.promote_count,
             cold_copy_bytes=self.cold_copy_bytes,
             host_transfer_bytes=self.host_transfer_bytes,
+            boundary_to_host_bytes=self.boundary_to_host_bytes,
+            boundary_to_device_bytes=self.boundary_to_device_bytes,
             cached_tables=sorted(self._cache),
         )

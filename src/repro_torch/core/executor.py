@@ -26,11 +26,14 @@ Execution modes, as the reference has them:
   operator, accumulated per category in ``op_times`` for the Figure-5
   breakdown.
 
-``accelerate`` and EXPLAIN ANALYZE are later slices of the port.  All
-worker threads launch on the device's current stream, so the device runs
-their work in submission order.  Unlike the reference, a warm replay that
-fails with anything but ``ReplayMismatch`` raises instead of re-running
-cold: a launch or build error is never hidden.
+The drop-in front door ``SiriusEngine.accelerate`` takes a Substrait-style
+wire plan (``repro_torch.substrait``); EXPLAIN ANALYZE is a later slice of
+the port.  All worker threads launch on the device's current stream, so
+the device runs their work in submission order.  Unlike the reference, a
+warm replay that fails with anything but ``ReplayMismatch`` raises instead
+of re-running cold, and ``execute_with_fallback`` degrades to the host only
+when the plan cannot be lowered (``PlanNotLowerable``): a launch or build
+error is never hidden.
 """
 from __future__ import annotations
 
@@ -237,6 +240,12 @@ class FetchSink(_Sink):
 # ---------------------------------------------------------------------------
 
 
+class PlanNotLowerable(TypeError):
+    """The device engine has no pipeline operator for a rel (WindowRel,
+    SetRel).  Raised by ``PlanLowering`` before any pipeline of the plan
+    runs; the only error ``execute_with_fallback`` degrades on."""
+
+
 @dataclasses.dataclass
 class Pipeline:
     pid: int
@@ -306,7 +315,7 @@ class PlanLowering:
             sink = FetchSink(_Result(), rel.count)
             child = self._attach_sink(child, sink)
             return self.new_pipeline(child.sink.result, [child.pid])
-        raise TypeError(f"cannot lower {type(rel)}")
+        raise PlanNotLowerable(f"cannot lower {type(rel)}")
 
     def _attach_sink(self, child: Pipeline, sink: _Sink) -> Pipeline:
         if child.sink is None:
@@ -354,9 +363,15 @@ class PipelineExecutor:
         self.compile_pipelines = compile_pipelines
         self.compiler = PipelineCompiler()
         self.op_times: Dict[str, float] = defaultdict(float)
+        # plans that ``SiriusEngine.execute_with_fallback`` ran on the host
+        self.fallback_queries = 0
         # executable-plan cache: signature → recorded pipelines + prepared
-        # stages + scalar-pull schedule (+ the captured graph on the card)
+        # stages + scalar-pull schedule (+ the captured graph on the card).
+        # The hybrid router flips ``cache_enabled`` off around fragments
+        # that read boundary tables: those change between accelerate()
+        # calls under the same plan signature, which would poison replays
         self.plan_cache = PlanCache()
+        self.cache_enabled = True
         self._exec_depth = 0
         # per-execute telemetry: first-call ("trace") time this query
         # incurred, how the plan cache resolved it and, for a warm run,
@@ -432,9 +447,10 @@ class PipelineExecutor:
         self._exec_depth += 1
         try:
             # the plan cache owns the default path; profiled and
-            # morsel-driven runs keep the uncached pipeline executor
-            use_cache = (self.compile_pipelines and not self.profile
-                         and not self.morsel_rows)
+            # morsel-driven runs and router-suspended fragments keep the
+            # uncached pipeline executor
+            use_cache = (self.cache_enabled and self.compile_pipelines
+                         and not self.profile and not self.morsel_rows)
             if use_cache:
                 out = self._execute_cached(plan)
             else:
@@ -922,28 +938,39 @@ class SiriusEngine:
         self.executor = PipelineExecutor(self.buffers, num_workers, morsel_rows,
                                          backend, profile=profile,
                                          compile_pipelines=compile_pipelines)
+        # host-format copies of registered tables (``register``'s
+        # ``host_data``): what host fragments and the fallback scan
+        self.host_tables: Dict[str, dict] = {}
+        # routing report of the most recent ``accelerate`` call
+        self.last_accelerate_report: Optional[dict] = None
         # host-side string dictionaries harvested at registration — kept
         # instead of the Tables themselves so the buffer manager stays free
         # to spill device columns
         self.table_dictionaries: Dict[str, Dict[str, object]] = {}
-        # warm front door: normalized SQL text → executable-plan signature,
-        # skipping lexer, parser, binder and optimizer on a hit; cleared
-        # with the plan cache on every register()
+        # warm front doors: normalized SQL text and canonical wire bytes map
+        # to executable-plan signatures, skipping lexer, parser, binder and
+        # optimizer (sql) or ingest and routing (accelerate) on a hit;
+        # cleared with the plan cache on every register()
         self._sql_plan_sigs: Dict[str, str] = {}
+        self._wire_plan_cache: Dict[bytes, tuple] = {}
 
     @property
     def compiler(self):
         """The signature-keyed region cache (its stats live here)."""
         return self.executor.compiler
 
-    def register(self, name: str, table: Table):
+    def register(self, name: str, table: Table,
+                 host_data: Optional[dict] = None):
         """Cache ``table`` on the engine's device under ``name`` (tensors
-        already on that device are held, not copied).
+        already on that device are held, not copied); ``host_data``, the
+        same table in host format, is kept for host fragments.
 
         Registered data is the one thing allowed to change between
-        queries: every cached executable plan and SQL key is dropped."""
+        queries: every cached executable plan, SQL key and wire key is
+        dropped."""
         self.executor.plan_cache.clear()
         self._sql_plan_sigs.clear()
+        self._wire_plan_cache.clear()
         self.buffers.cache_table(name, table)
         dicts = {c: col.dictionary for c, col in table.columns.items()
                  if col.dictionary is not None}
@@ -953,6 +980,8 @@ class SiriusEngine:
             # re-registration may drop string columns; never leave stale
             # dictionaries steering the optimizer's selectivity estimates
             self.table_dictionaries.pop(name, None)
+        if host_data is not None:
+            self.host_tables[name] = host_data
 
     def execute(self, plan: Rel) -> Table:
         return self.executor.execute(plan)
@@ -989,3 +1018,89 @@ class SiriusEngine:
         if cacheable and self.executor.last_plan_signature is not None:
             self._sql_plan_sigs[key] = self.executor.last_plan_signature
         return out
+
+    def accelerate(self, wire_plan, registry=None, analyze: bool = False):
+        """The drop-in front door: execute a serialized Substrait-style plan.
+
+        ``wire_plan`` is what an external host engine hands over — the wire
+        dict produced by ``repro_torch.substrait.emit`` (or the reference's),
+        or its JSON text/bytes.  The plan is ingested, split by the
+        capability ``registry`` into maximal device fragments and host
+        fragments (run on the numpy ``FallbackEngine``), and run with
+        boundary transfers accounted through the buffer manager: an
+        unsupported rel is a routed, reported placement, not an error.
+
+        Returns a ``Table`` on the engine's device; the routing report
+        (fragment placements, boundary bytes, ``device_rel_fraction``) is
+        kept on ``self.last_accelerate_report``.
+
+        Repeated wire plans take the warm path: the canonical wire bytes
+        key an executable-plan signature (cached only when routing placed
+        the whole plan on the device as one fragment), so a hit skips
+        ingest and routing and replays the cached entry, as ``sql`` does.
+        ``analyze=True`` needs ``QueryProfile`` (observability/profile.py),
+        the next slice of the port, and raises until then."""
+        if analyze:
+            raise NotImplementedError(
+                "accelerate(analyze=True) needs QueryProfile "
+                "(observability/profile.py), which is not ported yet")
+        from ..substrait import HybridRouter, ingest, wire_bytes
+        from ..substrait.router import host_to_device
+
+        wire_key = None
+        if registry is None:
+            try:
+                if isinstance(wire_plan, bytes):
+                    wire_key = wire_plan
+                elif isinstance(wire_plan, str):
+                    wire_key = wire_plan.encode("utf-8")
+                else:
+                    wire_key = wire_bytes(wire_plan)
+            except (TypeError, ValueError):  # unkeyable plans just run cold
+                wire_key = None
+            cached = (self._wire_plan_cache.get(wire_key)
+                      if wire_key is not None else None)
+            if cached is not None:
+                sig, report_template = cached
+                out = self.executor.replay_signature(sig)
+                if out is not None:
+                    self.last_accelerate_report = dict(report_template,
+                                                       plan_cache_hit=True)
+                    return out
+
+        # a cold run ingests afresh: execution resolves scalar subqueries
+        # in place
+        plan = ingest(wire_plan)
+        result, report = HybridRouter(self, registry).execute(plan)
+        if (wire_key is not None and isinstance(result, Table)
+                and report["host_fragments"] == 0
+                and report["device_fragments"] == 1
+                and self.executor.last_plan_signature is not None):
+            # one all-device fragment: the executor's entry covers the
+            # whole plan, so the routing report is replayable verbatim
+            self._wire_plan_cache[wire_key] = (
+                self.executor.last_plan_signature, dict(report))
+        if not isinstance(result, Table):
+            # host-rooted plan: the result itself crosses to the device
+            result = host_to_device(result, self.device)
+            self.buffers.account_boundary_to_device(result.nbytes)
+            report["boundary_to_device_bytes"] += result.nbytes
+        self.last_accelerate_report = report
+        return result
+
+    def execute_with_fallback(self, plan: Rel):
+        """Run on the device engine; a plan it cannot lower runs on the
+        host ``FallbackEngine`` over ``host_tables`` instead.
+
+        Returns ``(result, route)``: a device ``Table`` and
+        ``"accelerator"``, or a host dict and ``"fallback"`` (counted in
+        ``executor.fallback_queries``).  Unlike the reference, which
+        degrades on any exception, only ``PlanNotLowerable`` (raised before
+        any pipeline of the plan runs) degrades: a kernel build or launch
+        error, or a CUDA error, propagates."""
+        try:
+            return self.execute(plan), "accelerator"
+        except PlanNotLowerable:
+            from .fallback import FallbackEngine
+            self.executor.fallback_queries += 1
+            return FallbackEngine(self.host_tables).execute(plan), "fallback"

@@ -2,10 +2,11 @@
 
 A tree of relational operators with embedded scalar expressions: ReadRel,
 FilterRel, ProjectRel, JoinRel, AggregateRel, SortRel, FetchRel and
-ExchangeRel (bypassed on a single node), and SetRel and WindowRel as IR
-only.  ``plan_to_json`` / ``plan_from_json`` are the reference's JSON
-rendering of a plan, byte for byte; the Substrait wire format is a later
-slice of the port.
+ExchangeRel (bypassed on a single node), and SetRel and WindowRel, which
+the device engine does not run: the hybrid router (``substrait.router``)
+sends them to the host fallback.  ``plan_to_json`` / ``plan_from_json``
+are the reference's JSON rendering of a plan, byte for byte; the Substrait
+wire format is ``substrait.wire``.
 """
 from __future__ import annotations
 
@@ -19,6 +20,10 @@ from ..relational.expressions import (
     StartsWith, Substr, UnOp,
 )
 from ..relational.sort import SortKey
+
+# Leaf tables with this name prefix are hybrid-router cut points: the scan
+# reads a materialized fragment result, not a base table (substrait.router).
+HYBRID_BOUNDARY_PREFIX = "__substrait_frag"
 
 
 class Rel:
@@ -102,8 +107,9 @@ class ExchangeRel(Rel):
 
 @dataclasses.dataclass
 class SetRel(Rel):
-    """Set operation (UNION ALL): interchange vocabulary only, not run by
-    the device pipeline engine."""
+    """Set operation (UNION ALL): in the interchange vocabulary, but not run
+    by the device pipeline engine; the capability registry routes it to the
+    host fallback."""
     operands: List[Rel]
     op: str = "union_all"
 
@@ -114,8 +120,8 @@ class WindowRel(Rel):
 
     ``row_number``/``rank`` rank rows within a partition by ``order_keys``;
     aggregate functions (sum/count/avg/min/max over ``arg``) broadcast the
-    partition-wide value to every row.  Like SetRel, not run by the device
-    pipeline engine.
+    partition-wide value to every row.  Like SetRel, known to the wire
+    format but routed to the host fallback.
     """
     input: Rel
     partition_keys: List[str]
@@ -268,6 +274,8 @@ def explain(plan: Rel, indent: int = 0) -> str:
     extra = ""
     if isinstance(plan, ReadRel):
         extra = f" {plan.table}"
+        if plan.table.startswith(HYBRID_BOUNDARY_PREFIX):
+            extra += "  [hybrid boundary]"
         if plan.columns:
             extra += f" cols={plan.columns}"
         if plan.filter is not None:

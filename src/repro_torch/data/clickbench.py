@@ -203,11 +203,12 @@ def clickbench_catalog(sample_rows: int = None):
 
 
 def load_into_engine(engine, db: HostDB) -> None:
-    """Cold-run load: host format → device cache via the buffer manager."""
+    """Cold-run load: host format → device cache via the buffer manager;
+    the host dicts stay with the engine for host fragments."""
     from ..relational.table import Table
 
     for name, cols in db.items():
-        engine.register(name, Table.from_pydict(cols))
+        engine.register(name, Table.from_pydict(cols), cols)
 
 
 # ---------------------------------------------------------------------------

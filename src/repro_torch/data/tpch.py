@@ -334,8 +334,9 @@ def generate(scale_factor: float = 0.01, seed: int = 19920101) -> HostDB:
 
 
 def load_into_engine(engine, db: HostDB) -> None:
-    """Cold-run load: host format → device cache via the buffer manager."""
+    """Cold-run load: host format → device cache via the buffer manager;
+    the host dicts stay with the engine for host fragments."""
     from ..relational.table import Table
 
     for name, cols in db.items():
-        engine.register(name, Table.from_pydict(cols))
+        engine.register(name, Table.from_pydict(cols), cols)

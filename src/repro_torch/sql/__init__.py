@@ -2,7 +2,7 @@
 
     sql text ── tokenize ─▶ parse ─▶ bind ─▶ lower ─▶ naive plan IR
                                    (repro_torch.optimizer.optimize) ─▶ optimized IR
-                                   (SiriusEngine.execute) ─▶ device Table
+                                   (SiriusEngine.execute / FallbackEngine) ─▶ rows
 
 Supported SQL (the TPC-H + ClickBench surface): SELECT [DISTINCT] with
 joins (comma / INNER JOIN ON / LEFT OUTER JOIN ON), aliased self-joins,
@@ -16,16 +16,16 @@ escapes), substring(col, start, len) and starts_with(col, 'prefix').
 Entry points (this module):
   * ``sql_to_plan(sql, catalog=None, optimize=True)`` — SQL text →
     (optimized) plan IR;
-  * ``run_sql(sql, engine, catalog=None, optimize=True)`` — end-to-end
-    execution on a ``SiriusEngine`` (device ``Table`` result);
+  * ``sql_to_wire(sql, catalog=None, optimize=True)`` — SQL text → the
+    Substrait-style wire plan, byte for byte the reference's;
+  * ``run_sql(sql, db, catalog=None, optimize=True)`` — end-to-end
+    execution on a ``SiriusEngine`` (device ``Table`` result), a
+    ``FallbackEngine`` or a host-format dict-of-dicts (host dict result);
   * ``explain_sql(sql, catalog=None)`` — naive and optimized plans side by
     side with cardinality annotations.
 
-Not ported yet, and raising ``NotImplementedError`` where the reference
-would use them: host-format databases (they need ``core/fallback.py``'s
-``FallbackEngine``), ``EXPLAIN ANALYZE`` (it needs
-``observability/profile.py``'s ``QueryProfile``) and ``sql_to_wire``
-(the Substrait boundary).
+``EXPLAIN ANALYZE`` needs ``observability/profile.py``'s ``QueryProfile``,
+the next slice of the port, and raises ``NotImplementedError`` until then.
 
 ``Catalog`` supplies table schemas, row estimates and (optionally, via
 ``Catalog.with_dictionaries``) string dictionaries for the optimizer's
@@ -45,7 +45,7 @@ from .parser import parse_sql
 
 __all__ = [
     "Catalog", "EXPLAIN_ANALYZE_RE", "SqlError", "explain_sql", "parse_sql",
-    "run_sql", "sql_to_plan", "tokenize",
+    "run_sql", "sql_to_plan", "sql_to_wire", "tokenize",
 ]
 
 # ``EXPLAIN ANALYZE`` is an entry-point prefix, not grammar: the statement
@@ -75,24 +75,44 @@ def sql_to_plan(sql: str, catalog: Optional[Catalog] = None,
     return plan
 
 
+def sql_to_wire(sql: str, catalog: Optional[Catalog] = None,
+                optimize: bool = True) -> dict:
+    """SQL text → Substrait-style wire plan (the host-database producer).
+
+    Parse, bind, lower, optimize, then serialize through
+    ``repro_torch.substrait.emit`` so the plan can cross a process/system
+    boundary and be handed to ``SiriusEngine.accelerate`` (or any other
+    consumer).  Serialize the returned dict canonically with
+    ``repro_torch.substrait.wire_bytes``.
+    """
+    from ..substrait import emit
+
+    cat = catalog or DEFAULT_CATALOG
+    return emit(sql_to_plan(sql, cat, optimize), cat)
+
+
 def run_sql(sql: str, db, catalog: Optional[Catalog] = None,
             optimize: bool = True):
-    """Execute SQL text on the engine ``db`` (parse → optimize → execute).
+    """Execute SQL text against ``db`` (parse → optimize → execute).
 
-    ``db`` is a ``SiriusEngine``; the result is a device ``Table`` (call
-    ``.to_host()`` for numpy columns).  Prefer ``SiriusEngine.sql``, which
-    also attaches the loaded tables' dictionaries to the catalog.
+    ``db`` is where to run:
+      * a ``SiriusEngine``: the result is a device ``Table`` (call
+        ``.to_host()`` for numpy columns).  Prefer ``SiriusEngine.sql``,
+        which also attaches the loaded tables' dictionaries to the catalog;
+      * a ``FallbackEngine``: the numpy engine; returns a host-format dict;
+      * ``dict[table] -> dict[col] -> np.ndarray``: host data, run on a
+        fresh ``FallbackEngine``.
     """
+    from ..core.fallback import FallbackEngine
+
     if EXPLAIN_ANALYZE_RE.match(sql):
         raise NotImplementedError(
             "EXPLAIN ANALYZE needs QueryProfile (observability/profile.py), "
-            "which is not ported yet")
+            "the next slice of the port, which is not ported yet")
+    plan = sql_to_plan(sql, catalog, optimize)
     if isinstance(db, dict):
-        raise NotImplementedError(
-            "running SQL on a host-format database needs FallbackEngine "
-            "(core/fallback.py), which is not ported yet; load the tables "
-            "into a SiriusEngine instead")
-    return db.execute(sql_to_plan(sql, catalog, optimize))
+        return FallbackEngine(db).execute(plan)
+    return db.execute(plan)
 
 
 def explain_sql(sql: str, catalog: Optional[Catalog] = None) -> str:

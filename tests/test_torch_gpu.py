@@ -8,6 +8,8 @@ it runs on a machine that has only PyTorch:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 """
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -768,3 +770,76 @@ def test_fixed_point_sums_are_order_free_on_card(dev):
     assert float(((a.cpu() - want).abs() / want).max()) < 1e-12
     exact = torch.zeros(7, dtype=torch.float64).index_add_(0, ids.cpu(), q.cpu())
     assert torch.equal(segment_sum(q, ids, 7).cpu(), exact)
+
+
+# ---------------------------------------------------------------------------
+# the Substrait front door on the card
+# ---------------------------------------------------------------------------
+
+GOLDEN_DIR = Path(__file__).resolve().parent / "golden" / "substrait"
+
+
+@pytest.mark.parametrize("use_kernels", [False, True])
+@pytest.mark.parametrize("qid", [1, 3, 13, 21])
+def test_accelerate_golden_wire_equals_sql_on_card(tpch_small, qid,
+                                                   use_kernels):
+    """A golden wire through ``accelerate`` on the card: one device
+    fragment, no boundary bytes, the result on the card and equal to
+    ``sql()``; the warm call is a plan-cache hit by the wire bytes (one
+    CUDA graph on ``SiriusEngine()``)."""
+    from repro_torch.core import instrument
+    from repro_torch.data.tpch_queries import SQL_QUERIES
+    eng = _loaded(tpch_small, use_kernels=use_kernels)
+    blob = (GOLDEN_DIR / f"tpch_q{qid}.json").read_bytes()
+    want = _loaded(tpch_small, compile_pipelines=False).sql(
+        SQL_QUERIES[qid]).to_host()
+    cold = eng.accelerate(blob)
+    assert cold.device.type == "cuda"
+    report = eng.last_accelerate_report
+    assert (report["device_fragments"], report["host_fragments"],
+            report["device_rel_fraction"], report["boundary_to_host_bytes"],
+            report["boundary_to_device_bytes"]) == (1, 0, 1.0, 0, 0)
+    _same(cold.to_host(), want)
+    barriers = instrument.sync_barriers.value
+    syncs = instrument.scalar_syncs.value
+    warm = eng.accelerate(blob)
+    assert eng.last_accelerate_report["plan_cache_hit"] is True
+    assert instrument.sync_barriers.value - barriers == 1
+    assert instrument.scalar_syncs.value == syncs
+    assert eng.executor.last_replay_mode == (
+        "closure" if use_kernels else "graph")
+    _same(warm.to_host(), want)
+    _same(eng.sql(SQL_QUERIES[qid]).to_host(), want)
+
+
+def test_accelerate_hybrid_plan_stays_on_card(tpch_small):
+    """A window plan routes device → host → device; the host fragment's
+    result is cached on the card, and the boundary bytes equal the buffer
+    manager's counters."""
+    from repro_torch.core.fallback import FallbackEngine
+    from repro_torch.core.plan import FilterRel, ReadRel, WindowRel
+    from repro_torch.relational.expressions import BinOp, Col, Lit
+    from repro_torch.relational.sort import SortKey
+    from repro_torch.sql.binder import DEFAULT_CATALOG
+    from repro_torch.substrait import emit
+
+    def plan():
+        return FilterRel(
+            WindowRel(ReadRel("lineitem", ["l_orderkey", "l_quantity"]),
+                      ["l_orderkey"], [SortKey("l_quantity", False)],
+                      "row_number", None, "rn"),
+            BinOp("==", Col("rn"), Lit(1)))
+
+    eng = _loaded(tpch_small, use_kernels=True)
+    h0 = eng.buffers.boundary_to_host_bytes
+    d0 = eng.buffers.boundary_to_device_bytes
+    got = eng.accelerate(emit(plan(), DEFAULT_CATALOG))
+    report = eng.last_accelerate_report
+    assert [f["placement"] for f in report["fragments"]] == \
+        ["device", "host", "device"]
+    assert got.device.type == "cuda"
+    assert eng.buffers.boundary_to_host_bytes - h0 == \
+        report["boundary_to_host_bytes"] > 0
+    assert eng.buffers.boundary_to_device_bytes - d0 == \
+        report["boundary_to_device_bytes"] > 0
+    _same(got.to_host(), FallbackEngine(tpch_small).execute(plan()))

@@ -30,7 +30,9 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
         "repro_torch.data.clickbench, repro_torch.configs, "
         "repro_torch.kernels.decode_attention, repro_torch.models.layers, "
         "repro_torch.models.lm, repro_torch.models.convert, "
-        "repro_torch.serve_lm\n"
+        "repro_torch.serve_lm, repro_torch.substrait, "
+        "repro_torch.substrait.wire, repro_torch.substrait.router, "
+        "repro_torch.core.fallback\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
         "print(','.join(bad))\n")

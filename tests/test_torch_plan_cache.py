@@ -1,6 +1,7 @@
 """The executable-plan cache on the port: ``tests/test_plan_cache.py``'s
-contracts (the Substrait wire cache aside, which is not ported), plan JSON,
-and ``tests/test_join_sync.py``'s warm join queries, on the CPU.
+contracts (the Substrait wire cache aside, which
+``tests/test_torch_substrait.py`` holds), plan JSON, and
+``tests/test_join_sync.py``'s warm join queries, on the CPU.
 
 * Signatures: stable across fresh plan objects, distinct across the 22
   queries, and equal to the reference's ``plan_signature`` string for each;

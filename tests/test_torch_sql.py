@@ -8,6 +8,7 @@ the naive and the optimized plans print byte for byte the reference's
 reference's message and caret.
 """
 import jax  # noqa: F401 — both packages in one process, JAX on the CPU
+import numpy as np
 import pytest
 
 from repro.core.plan import explain as ref_explain
@@ -119,8 +120,15 @@ def test_explain_sql_shows_both_plans():
 
 
 def test_unported_entry_points_say_what_is_missing():
+    """EXPLAIN ANALYZE waits for the next slice; a host-format database now
+    runs on the port's FallbackEngine (tests/test_torch_fallback.py)."""
     assert EXPLAIN_ANALYZE_RE.match("  EXPLAIN analyze select 1")
-    with pytest.raises(NotImplementedError, match="QueryProfile"):
+    with pytest.raises(NotImplementedError, match="QueryProfile.*next slice"):
         run_sql("explain analyze " + SQL_QUERIES[6], object())
-    with pytest.raises(NotImplementedError, match="FallbackEngine"):
-        run_sql(SQL_QUERIES[6], {"lineitem": {}})
+    with pytest.raises(NotImplementedError, match="QueryProfile"):
+        run_sql("explain analyze " + SQL_QUERIES[6], {"lineitem": {}})
+    lineitem = {"l_shipdate": np.array(["1994-06-01"], "datetime64[D]"),
+                "l_discount": np.array([0.06]), "l_quantity": np.array([1.0]),
+                "l_extendedprice": np.array([100.0])}
+    out = run_sql(SQL_QUERIES[6], {"lineitem": lineitem})
+    np.testing.assert_allclose(out["revenue"], [6.0])

@@ -91,6 +91,27 @@ nothing of JAX or of the JAX package ``repro``, and:
    ``FallbackEngine`` on the host dicts (Q13: the eager ``sql()``), each
    fragment's seconds.  No plan may fall back; the five SQL kernels must
    launch in the phase;
+5c. drives EXPLAIN ANALYZE on the same tensors (registered again with their
+   host dicts): each of the 22 hand-built plans through
+   ``execute(plan, analyze=True)`` on ``SiriusEngine(use_kernels=True)`` and
+   ``SiriusEngine()`` after a cold plain run, twice (the second is
+   reported), each result held against the eager yardstick, each profile
+   valid with its last sink's ``rows_out`` the result's rows, more than one
+   barrier a run, the ``kernel.*_hits`` deltas equal to
+   ``EXPECTED_HITS_SF1`` on the kernel engine, and every fused operator
+   that ran carrying ``est_flops`` and ``est_bytes`` (some on each engine);
+   after it, each plain warm run still a plan-cache replay with one
+   barrier and no scalar sync (one CUDA graph on ``SiriusEngine()``).  The
+   15 ClickBench queries through ``sql(text, analyze=True)`` on the kernel
+   engine with ``CB_AGG`` / ``CB_TOPK`` hits; ``sql("EXPLAIN ANALYZE " +
+   Q6)``; ``accelerate(wire, analyze=True)`` on Q3's golden wire and the
+   four hybrid plans, each one merged profile whose fragments keep no
+   ``_profile``.  Then warm replays of Q1 and Q6 on both engines with the
+   journal on and off in turn (31 each): one barrier, no scalar sync, no
+   transfer bytes, no copy in a pipeline, and the median with it on within
+   ``t_off * 1.05 + 2 ms``; and the journal calls of a warm run timed
+   alone, on and off.  Q3's ``pretty()`` and a Chrome trace of Q3's
+   SQL text go to ``build/``; the kernels of both SQL paths must launch;
 6. drives the LM serving path: ``serve_lm``'s workload (``llama3.2-3b``
    at full width, 28 layers, random bf16 weights from its seed) on the
    card.  For models and tokens from three seeds, teacher-forced
@@ -225,7 +246,13 @@ PATH_KERNELS = {
     "lm_serve": ("decode_attention",),
     "front_door": ("filter_mask_counts", "groupby_sum", "hash_probe",
                    "join_expand", "topk_select"),
+    "analyze": ("filter_mask_counts", "groupby_sum", "hash_probe",
+                "join_expand", "topk_select"),
 }
+# phase 5c: the warm replays a query runs with the journal on and with it
+# off, and the calls of a warm run's journal spans timed alone
+JOURNAL_REPEATS = 31
+SPAN_CALLS = 20_000
 
 # decode_attention in bf16 against the plain version on float32 inputs:
 # the kernel rounds a float32 result once, which moves it by at most half
@@ -1560,6 +1587,315 @@ def run_front_door(card: str, tpch_tables: dict, tpch_db: dict,
 
 
 # ---------------------------------------------------------------------------
+# phase 5c: EXPLAIN ANALYZE and the query journal
+# ---------------------------------------------------------------------------
+
+
+def _kernel_deltas(profile: dict) -> dict:
+    """A profile's ``kernel.<name>_hits`` deltas → ``_hits``'s keys."""
+    return {k[len("kernel."):-len("_hits")]: int(v)
+            for k, v in profile["metrics"].items() if k.startswith("kernel.")}
+
+
+def run_analyze(card: str, tpch_tables: dict, tpch_db: dict, cb_table,
+                cb_db: dict) -> dict:
+    """EXPLAIN ANALYZE through ``execute``, ``sql`` and ``accelerate`` on
+    the data phases 4 and 5 loaded (registered again with their host
+    dicts), and the journal's cost on warm replays."""
+    import torch
+    from repro_torch.core import instrument
+    from repro_torch.core.executor import SiriusEngine
+    from repro_torch.core.fallback import FallbackEngine
+    from repro_torch.data import clickbench as cb
+    from repro_torch.data.tpch_queries import QUERIES, SQL_QUERIES
+    from repro_torch.kernels import build
+    from repro_torch.observability import (JOURNAL, QueryJournal,
+                                           QueryProfile, to_chrome,
+                                           validate_profile)
+    from repro_torch.sql.binder import DEFAULT_CATALOG
+    from repro_torch.substrait import emit as wire_emit
+
+    t_phase = time.perf_counter()
+    out_dir = ROOT / "build"
+    out_dir.mkdir(exist_ok=True)
+
+    def engine(tables, host, **kw):
+        e = SiriusEngine(**kw)
+        for name, t in tables.items():
+            e.register(name, t, host[name])
+        return e
+
+    def timed(fn):
+        t = time.perf_counter()
+        out = fn()
+        return out, (time.perf_counter() - t) * 1e3
+
+    def checked(prof, rows: int, what: str) -> dict:
+        """The profile's dict, valid, its last sink's rows the result's."""
+        if not isinstance(prof, QueryProfile):
+            raise AssertionError(f"{what}: no QueryProfile ({type(prof)})")
+        d = prof.to_dict()
+        errors = validate_profile(d)
+        if errors:
+            raise AssertionError(f"{what}: invalid profile: {errors}")
+        last = d["pipelines"][-1]["operators"][-1]
+        if last["rows_out"] != rows:
+            raise AssertionError(f"{what}: the last sink's rows_out "
+                                 f"{last['rows_out']}, the result's {rows}")
+        return d
+
+    def warm(e, fn, what: str, want_mode: str):
+        syncs = instrument.scalar_syncs.value
+        barriers = instrument.sync_barriers.value
+        out, ms = timed(fn)
+        if not e.executor.last_plan_cache_hit:
+            raise AssertionError(f"{what}: a warm run missed the plan cache")
+        got = (instrument.scalar_syncs.value - syncs,
+               instrument.sync_barriers.value - barriers)
+        if got != (0, 1):
+            raise AssertionError(f"{what}: a warm run took {got[0]} scalar "
+                                 f"syncs and {got[1]} barriers, not 0 and 1")
+        if e.executor.last_replay_mode != want_mode:
+            raise AssertionError(f"{what}: replayed by "
+                                 f"{e.executor.last_replay_mode}, expected "
+                                 f"{want_mode}")
+        return out, ms
+
+    def no_fragment_profiles(e, prof, what: str) -> None:
+        for frags in (prof.fragments, e.last_accelerate_report["fragments"]):
+            if any("_profile" in f for f in frags):
+                raise AssertionError(f"{what}: a fragment kept its _profile")
+
+    build.reset_launch_counts()
+    yard = engine(tpch_tables, tpch_db, use_kernels=False,
+                  compile_pipelines=False)
+    engines = {"kernels": engine(tpch_tables, tpch_db, use_kernels=True),
+               "graph": engine(tpch_tables, tpch_db, use_kernels=False)}
+    tpch_rows = []
+    costed = {label: 0 for label in engines}
+    for qid in sorted(QUERIES):
+        want = yard.execute(QUERIES[qid]()).to_host()
+        n_rows = len(next(iter(want.values())))
+        row = {"query": f"Q{qid}", "card": card, "rows": n_rows}
+        for label, e in engines.items():
+            what = f"analyze Q{qid} ({label})"
+            want_mode = ("graph" if label == "graph" and qid in
+                         EXPECTED_GRAPH_QIDS else "closure")
+            e.execute(QUERIES[qid]())             # records the entry
+            runs = []
+            for _ in range(2):                    # the second is reported
+                barriers = instrument.sync_barriers.value
+                out, ms = timed(lambda: e.execute(
+                    QUERIES[qid](), analyze=True, query_text=f"tpch q{qid}"))
+                barriers = instrument.sync_barriers.value - barriers
+                if barriers <= 1:
+                    raise AssertionError(f"{what}: {barriers} barriers")
+                compare_tables(out.to_host(), want)
+                d = checked(e.last_profile, out.num_rows, what)
+                if label == "kernels" and \
+                        _kernel_deltas(d) != EXPECTED_HITS_SF1[qid]:
+                    raise AssertionError(
+                        f"{what}: kernel hits {_kernel_deltas(d)}, "
+                        f"expected {EXPECTED_HITS_SF1[qid]}")
+                runs.append((ms, barriers))
+            # (a plan whose pipelines scan straight into their sinks, or
+            # whose probes all run eagerly, has no fused region)
+            fused = [o for p in d["pipelines"] for o in p["operators"]
+                     if o["category"] == "fused"]
+            costed[label] += len(fused)
+            for o in fused:
+                a = o["attrs"]
+                if not a.get("degraded") and not (
+                        a.get("est_flops", 0) > 0 and a.get("est_bytes", 0) > 0):
+                    raise AssertionError(f"{what}: {o['name']} has no cost "
+                                         f"estimate: {a}")
+            warms = []
+            for _ in range(WARM_RUNS):
+                w, ms = warm(e, lambda: e.execute(QUERIES[qid]()), what,
+                             want_mode)
+                compare_tables(w.to_host(), want)
+                warms.append(ms)
+            row[label] = {
+                "analyzed_ms": runs[1][0], "first_analyzed_ms": runs[0][0],
+                "analyzed_barriers": runs[1][1],
+                "warm_ms": statistics.median(warms), "replay": want_mode,
+                "profile_total_ms": d["total_seconds"] * 1e3,
+                "operator_totals_ms": {k: v * 1e3 for k, v in
+                                       d["operator_totals"].items()},
+                "operators": sum(len(p["operators"]) for p in d["pipelines"]),
+                "fused": len(fused), "hits": _kernel_deltas(d)}
+            if qid == 3 and label == "kernels":
+                (out_dir / "chip_smoke_q3_profile.txt").write_text(
+                    e.last_profile.pretty() + "\n")
+        emit({"phase": "analyze_tpch", **row})
+        tpch_rows.append(row)
+    if not all(costed.values()):
+        raise AssertionError(f"fused operators with cost estimates: {costed}")
+
+    # ClickBench: the 15 queries through sql(analyze=True) on the kernel
+    # engine at CB_ROWS rows
+    cat = cb.clickbench_catalog(CB_ROWS)
+    cb_yard = SiriusEngine(use_kernels=False, compile_pipelines=False)
+    cb_yard.register("hits", cb_table)
+    cb_eng = SiriusEngine(use_kernels=True)
+    cb_eng.register("hits", cb_table, cb_db["hits"])
+    cb_rows = []
+    for qid in cb.CLICKBENCH_QUERIES:
+        text = cb.CLICKBENCH_QUERIES[qid]
+        what = f"analyze ClickBench {qid}"
+        want = cb_yard.sql(text, catalog=cat).to_host()
+        cb_eng.sql(text, catalog=cat)             # records the entry
+        out, ms = timed(lambda: cb_eng.sql(text, catalog=cat, analyze=True))
+        compare_tables(out.to_host(), want)
+        d = checked(cb_eng.last_profile, out.num_rows, what)
+        want_hits = _hits(agg=int(qid in CB_AGG), topk=int(qid in CB_TOPK))
+        if _kernel_deltas(d) != want_hits:
+            raise AssertionError(f"{what}: kernel hits {_kernel_deltas(d)}, "
+                                 f"expected {want_hits}")
+        w, warm_ms = warm(cb_eng, lambda: cb_eng.sql(text, catalog=cat),
+                          what, "closure")
+        compare_tables(w.to_host(), want)
+        row = {"query": qid, "card": card,
+               "rows": len(next(iter(want.values()))), "analyzed_ms": ms,
+               "warm_ms": warm_ms, "profile_total_ms": d["total_seconds"] * 1e3,
+               "operator_totals_ms": {k: v * 1e3 for k, v in
+                                      d["operator_totals"].items()},
+               "hits": _kernel_deltas(d)}
+        emit({"phase": "analyze_clickbench", **row})
+        cb_rows.append(row)
+
+    # EXPLAIN ANALYZE through sql(), one all-device wire and the four
+    # hybrid plans through accelerate(analyze=True), on the kernel engine
+    kern = engines["kernels"]
+    prof, ms = timed(lambda: kern.sql("EXPLAIN ANALYZE " + SQL_QUERIES[6]))
+    checked(prof, 1, "EXPLAIN ANALYZE Q6")
+    if prof is not kern.last_profile or not prof.query.startswith("select"):
+        raise AssertionError(f"EXPLAIN ANALYZE Q6: query {prof.query!r}")
+    front = [{"what": "EXPLAIN ANALYZE Q6", "ms": ms}]
+    out, ms = timed(lambda: kern.accelerate(_golden_wire("tpch_q3"),
+                                            analyze=True))
+    compare_tables(out.to_host(), yard.sql(SQL_QUERIES[3]).to_host())
+    prof = kern.last_profile
+    checked(prof, out.num_rows, "wire Q3 analyzed")
+    no_fragment_profiles(kern, prof, "wire Q3 analyzed")
+    if [f["placement"] for f in prof.fragments] != ["device"] or not all(
+            p.source.startswith("frag0:") for p in prof.pipelines):
+        raise AssertionError(f"wire Q3 analyzed: fragments {prof.fragments}")
+    front.append({"what": "wire Q3", "ms": ms,
+                  "pipelines": len(prof.pipelines)})
+    for name, (plan, registry, placements, _, _) in _hybrid_plans().items():
+        what = f"hybrid {name} analyzed"
+        blob = wire_emit(plan(), DEFAULT_CATALOG)
+        out, ms = timed(lambda: kern.accelerate(blob, registry=registry,
+                                                analyze=True))
+        prof = kern.last_profile
+        d = prof.to_dict()
+        if validate_profile(d):
+            raise AssertionError(f"{what}: {validate_profile(d)}")
+        no_fragment_profiles(kern, prof, what)
+        got_place = [f["placement"] for f in prof.fragments]
+        host_ops = [p.operators[0].name for p in prof.pipelines
+                    if p.source.endswith(":host")]
+        if got_place != placements or \
+                host_ops != ["HostFragment"] * placements.count("host"):
+            raise AssertionError(f"{what}: fragments {got_place}, host "
+                                 f"operators {host_ops}")
+        if name == "q13_without_like":
+            want = yard.sql(SQL_QUERIES[13]).to_host()
+        else:
+            want = FallbackEngine(tpch_db).execute(plan())
+        compare_tables(out.to_host(), want)
+        front.append({"what": what, "ms": ms, "fragments": [
+            {k: f[k] for k in ("fid", "placement", "seconds", "rows_out")}
+            for f in prof.fragments]})
+        del out
+    for r in front:
+        emit({"phase": "analyze_front_door", "card": card, **r})
+
+    # the journal on and off on warm replays of Q1 and Q6: interleaved
+    # runs, on first in even rounds and off first in odd ones
+    journal = []
+    for label, e in engines.items():
+        for qid in (1, 6):
+            what = f"journal Q{qid} ({label})"
+            want_mode = ("graph" if label == "graph" and qid in
+                         EXPECTED_GRAPH_QIDS else "closure")
+            times = {True: [], False: []}
+            try:
+                for i in range(JOURNAL_REPEATS):
+                    for on in ((True, False) if i % 2 == 0 else (False, True)):
+                        (JOURNAL.enable if on else JOURNAL.disable)()
+                        xfer = e.buffers.host_transfer_bytes
+                        _, ms = warm(e, lambda: e.execute(QUERIES[qid]()),
+                                     what, want_mode)
+                        if e.buffers.host_transfer_bytes != xfer:
+                            raise AssertionError(f"{what}: transfer bytes")
+                        times[on].append(ms)
+            finally:
+                JOURNAL.enable()
+            with instrument.track_transfers() as counter:
+                warm(e, lambda: e.execute(QUERIES[qid]()), what, want_mode)
+            if counter.in_pipeline:
+                raise AssertionError(f"{what}: {counter.in_pipeline} copies "
+                                     f"in pipelines with the journal on")
+            t_on = statistics.median(times[True]) / 1e3
+            t_off = statistics.median(times[False]) / 1e3
+            if not t_on <= t_off * 1.05 + 0.002:
+                raise AssertionError(f"{what}: {t_on * 1e3:.4f} ms on, "
+                                     f"{t_off * 1e3:.4f} ms off")
+            row = {"query": f"Q{qid}", "engine": label, "card": card,
+                   "on_ms": t_on * 1e3, "off_ms": t_off * 1e3,
+                   "on_quartiles_ms": statistics.quantiles(times[True], n=4),
+                   "off_quartiles_ms": statistics.quantiles(times[False], n=4),
+                   "on_ms_all": times[True], "off_ms_all": times[False]}
+            emit({"phase": "analyze_journal", **{k: v for k, v in row.items()
+                                                 if not k.endswith("_all")}})
+            journal.append(row)
+
+    # the journal calls a warm run makes (a query span, the replay span and
+    # the query span's attributes), timed alone on a journal of their own
+    span_us = {}
+    watermarks = engines["graph"].buffers.watermarks()
+    for on in (True, False, True, False):
+        j = QueryJournal(capacity=65536, enabled=on)
+        t = time.perf_counter()
+        for _ in range(SPAN_CALLS):
+            with j.query_span("engine.execute") as jspan:
+                with j.span("plan_cache.replay", "cache", mode="graph"):
+                    pass
+                jspan.set(plan_cache_hit=True, compile_seconds=0.0,
+                          **watermarks)
+        span_us.setdefault("on" if on else "off", []).append(
+            (time.perf_counter() - t) / SPAN_CALLS * 1e6)
+    emit({"phase": "analyze_journal_spans", "card": card,
+          "calls": SPAN_CALLS, "us_per_warm_run": span_us})
+
+    # a Chrome trace of one query: Q3's SQL text on the graph engine
+    graph = engines["graph"]
+    graph.sql(SQL_QUERIES[3])
+    trace = to_chrome(JOURNAL.events(graph.last_query_id), epoch=JOURNAL.epoch)
+    spans = [e for e in trace["traceEvents"] if e["ph"] == "X"]
+    lanes = [e["args"]["name"] for e in trace["traceEvents"] if e["ph"] == "M"]
+    if not spans or lanes != ["coordinator"] or \
+            not all(e["dur"] > 0 for e in spans):
+        raise AssertionError(f"Chrome trace: lanes {lanes}, spans {spans}")
+    (out_dir / "chip_smoke_trace_q3.json").write_text(json.dumps(trace))
+
+    launches = build.launch_counts()
+    missing = [k for k in PATH_KERNELS["analyze"] if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched in the analyzed "
+                             f"phase: {missing}")
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t_phase
+    emit({"phase": "analyze", "card": card, "seconds": seconds,
+          "launches": launches, "journal_events": JOURNAL.summary()})
+    return {"launches": launches, "tpch": tpch_rows, "clickbench": cb_rows,
+            "front_door": front, "journal": journal,
+            "journal_span_us": span_us, "seconds": seconds}
+
+
+# ---------------------------------------------------------------------------
 # phase 6: the LM serving path (llama3.2-3b at full width)
 # ---------------------------------------------------------------------------
 
@@ -1734,6 +2070,7 @@ def main() -> int:
     report["front_door"] = run_front_door(
         card, tables, tpch_db, cb_table, cb_db,
         report["compiled_path"].pop("sql_runs"))
+    report["analyze"] = run_analyze(card, tables, tpch_db, cb_table, cb_db)
     del tables, tpch_db, cb_table, cb_db
     torch.cuda.empty_cache()
     report["lm_serve"] = run_lm_serve(card, dev)
@@ -1741,6 +2078,7 @@ def main() -> int:
                "tpch_compiled": report["compiled_path"]["launches"],
                "clickbench": report["clickbench"]["launches"],
                "front_door": report["front_door"]["launches"],
+               "analyze": report["analyze"]["launches"],
                "lm_serve": report["lm_serve"]["launches"]}
     line = []
     for row in kernels:

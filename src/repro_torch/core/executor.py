@@ -22,18 +22,28 @@ Execution modes, as the reference has them:
   worker threads run the pipelines (fused regions when compiling, every
   operator eagerly otherwise) and the query's one barrier is at the final
   sink;
-* **profile=True** (per engine) — a barrier and a timer after every
-  operator, accumulated per category in ``op_times`` for the Figure-5
-  breakdown.
+* **analyze=True** (per call) — the same fused regions on the uncached
+  path, with a barrier and a timer after every stage, so each stage's wall
+  time and rows in and out land in a ``QueryProfile``
+  (``executor.last_profile``).  Pipelines run one at a time, so operator
+  wall clocks never overlap and sum to at most the query's total; the
+  plan cache is bypassed and no entry is recorded or dropped;
+* **profile=True** (per engine) — every operator eagerly, with a barrier
+  and a timer after each, accumulated per category in ``op_times`` for the
+  Figure-5 breakdown and recorded into a ``QueryProfile`` as well.
 
-The drop-in front door ``SiriusEngine.accelerate`` takes a Substrait-style
-wire plan (``repro_torch.substrait``); EXPLAIN ANALYZE is a later slice of
-the port.  All worker threads launch on the device's current stream, so
-the device runs their work in submission order.  Unlike the reference, a
-warm replay that fails with anything but ``ReplayMismatch`` raises instead
-of re-running cold, and ``execute_with_fallback`` degrades to the host only
-when the plan cannot be lowered (``PlanNotLowerable``): a launch or build
-error is never hidden.
+Every call lands in the query journal (``observability.journal``): a
+top-level call roots a query tree, a nested one (a scalar subquery, a call
+under ``sql`` or ``accelerate``) is a child span, and the plan cache's
+record, replay and poisoning are spans and events of it.  The drop-in
+front door ``SiriusEngine.accelerate`` takes a Substrait-style wire plan
+(``repro_torch.substrait``).  All worker threads launch on the device's
+current stream, so the device runs their work in submission order.
+Unlike the reference, a warm replay that fails with anything but
+``ReplayMismatch`` raises instead of re-running cold, and
+``execute_with_fallback`` degrades to the host only when the plan cannot
+be lowered (``PlanNotLowerable``): a launch or build error is never
+hidden.
 """
 from __future__ import annotations
 
@@ -50,18 +60,21 @@ import torch
 
 from ..buffer.manager import BufferManager
 from ..kernels import build as kbuild
-from ..observability.metrics import METRICS
+from ..observability import (
+    JOURNAL, METRICS, OperatorProfile, PipelineProfile, ProfileBuilder,
+    QueryProfile,
+)
 from ..relational.aggregate import group_aggregate
 from ..relational.expressions import Expr, Lit, evaluate
 from ..relational.join import hash_join
 from ..relational.sort import sort_table
 from ..relational.table import Column, Table
 from . import instrument
-from .pipeline_compiler import PipelineCompiler
+from .pipeline_compiler import FusedSegment, PipelineCompiler
 from .plan_cache import ExecutablePlan, PlanCache, RecordedPipeline, plan_signature
 from .plan import (
     AggregateRel, ExchangeRel, FetchRel, FilterRel, JoinRel, ProjectRel,
-    ReadRel, Rel, ScalarSubquery, SortRel, walk,
+    ReadRel, Rel, ScalarSubquery, SortRel, explain, walk,
 )
 
 
@@ -354,13 +367,17 @@ class PipelineExecutor:
 
     def __init__(self, buffers: BufferManager, num_workers: int = 2,
                  morsel_rows: Optional[int] = None, backend=None,
-                 profile: bool = False, compile_pipelines: bool = True):
+                 profile: bool = False, compile_pipelines: bool = True,
+                 metrics=None):
         self.buffers = buffers
         self.num_workers = num_workers
         self.morsel_rows = morsel_rows
         self.backend = backend
         self.profile = profile
         self.compile_pipelines = compile_pipelines
+        # instance-scoped registry (a per-engine one mirrors into METRICS);
+        # the process-global METRICS by default
+        self.metrics = metrics if metrics is not None else METRICS
         self.compiler = PipelineCompiler()
         self.op_times: Dict[str, float] = defaultdict(float)
         # plans that ``SiriusEngine.execute_with_fallback`` ran on the host
@@ -370,7 +387,7 @@ class PipelineExecutor:
         # The hybrid router flips ``cache_enabled`` off around fragments
         # that read boundary tables: those change between accelerate()
         # calls under the same plan signature, which would poison replays
-        self.plan_cache = PlanCache()
+        self.plan_cache = PlanCache(metrics=self.metrics)
         self.cache_enabled = True
         self._exec_depth = 0
         # per-execute telemetry: first-call ("trace") time this query
@@ -380,6 +397,15 @@ class PipelineExecutor:
         self.last_plan_signature: Optional[str] = None
         self.last_plan_cache_hit = False
         self.last_replay_mode: Optional[str] = None
+        self.last_query_id: Optional[str] = None
+        # EXPLAIN ANALYZE state: the live per-query collector (None on the
+        # default path; its presence switches on the per-stage barriers),
+        # whether the call asked for analyze, the pushed-down scan filter's
+        # seconds of the pipeline being profiled, and the last QueryProfile
+        self._builder: Optional[ProfileBuilder] = None
+        self._analyze = False
+        self._scan_filter_s = 0.0
+        self.last_profile: Optional[QueryProfile] = None
         # CUDA graph captures that failed (their entries keep the closure
         # loop): the count, and the last error per plan signature
         self.capture_failures = 0
@@ -433,11 +459,35 @@ class PipelineExecutor:
                                 and isinstance(getattr(item, "expr", None), Expr):
                             item.expr = self._resolve_subqueries(item.expr)
 
-    def execute(self, plan: Rel) -> Table:
+    def execute(self, plan: Rel, analyze: bool = False,
+                query_text: Optional[str] = None) -> Table:
         """Run ``plan`` (a cold run mutates it: scalar subqueries become
-        literals).  Nested calls (scalar-subquery plans) go through the same
-        path and cache."""
+        literals).  With ``analyze=True`` (or engine ``profile=True``) a
+        ``QueryProfile`` is assembled on ``self.last_profile``; the default
+        path takes no extra barrier and no per-stage timing.  Nested calls
+        (scalar-subquery plans) go through the same path and cache, and
+        record into the enclosing query's profile.
+
+        Every call lands in the query journal: a top-level call with no
+        ambient trace context roots a fresh query tree, a nested one is a
+        child span of the enclosing query."""
+        with JOURNAL.query_span("engine.execute") as jspan:
+            return self._execute_journaled(plan, analyze, query_text, jspan)
+
+    def _execute_journaled(self, plan: Rel, analyze: bool,
+                           query_text: Optional[str], jspan) -> Table:
         t0 = time.perf_counter()
+        owns_builder = (analyze or self.profile) and self._builder is None
+        if owns_builder:
+            self._builder = ProfileBuilder(
+                query=query_text,
+                engine={"use_kernels": self.backend is not None,
+                        "compile_pipelines": self.compile_pipelines,
+                        "profile_mode": self.profile,
+                        "num_workers": self.num_workers})
+            self._analyze = bool(analyze)
+            metrics_before = self._metrics_snapshot()
+            trace_b0 = self.compiler.stats["trace_seconds"]
         top_level = self._exec_depth == 0
         if top_level:
             self.last_plan_signature = None
@@ -446,11 +496,12 @@ class PipelineExecutor:
             trace_s0 = self.compiler.stats["trace_seconds"]
         self._exec_depth += 1
         try:
-            # the plan cache owns the default path; profiled and
+            # the plan cache owns the default path; analyzed, profiled and
             # morsel-driven runs and router-suspended fragments keep the
             # uncached pipeline executor
             use_cache = (self.cache_enabled and self.compile_pipelines
-                         and not self.profile and not self.morsel_rows)
+                         and self._builder is None and not self.profile
+                         and not self.morsel_rows)
             if use_cache:
                 out = self._execute_cached(plan)
             else:
@@ -458,11 +509,54 @@ class PipelineExecutor:
         finally:
             self._exec_depth -= 1
             if top_level:
+                # trace time goes to the query that incurred it (a cold run
+                # its first calls and capture; a warm replay 0)
                 self.last_compile_seconds = (
                     self.compiler.stats["trace_seconds"] - trace_s0)
-        METRICS.histogram("executor.query_seconds").observe(
+                self.last_query_id = jspan.query_id
+                jspan.set(plan_cache_hit=self.last_plan_cache_hit,
+                          compile_seconds=round(self.last_compile_seconds, 6),
+                          **self.buffers.watermarks())
+            if owns_builder:
+                total = time.perf_counter() - t0
+                builder, self._builder = self._builder, None
+                self._analyze = False
+                builder.plan_text = explain(plan)
+                compile_s = self.compiler.stats["trace_seconds"] - trace_b0
+                metrics = {k: v - metrics_before.get(k, 0)
+                           for k, v in self._metrics_snapshot().items()}
+                self.last_profile = builder.finalize(total, compile_s, metrics)
+        self.metrics.histogram("executor.query_seconds").observe(
             time.perf_counter() - t0)
         return out
+
+    def _metrics_snapshot(self) -> Dict[str, float]:
+        """Point-in-time view of this engine's counters; the per-query
+        deltas of two snapshots become ``QueryProfile.metrics``.  The key
+        set is the reference's (kernel counters appear, as zero, without a
+        kernel backend) plus the port's ``compiler.declines``."""
+        from ..relational import strings
+        snap: Dict[str, float] = {}
+        for k, v in self.compiler.stats.items():
+            snap[f"compiler.{k}"] = v
+        hits = (self.backend.hit_counts() if self.backend is not None
+                else {"filter": 0, "probe": 0, "agg": 0,
+                      "expand": 0, "topk": 0})
+        for k, v in hits.items():
+            snap[f"kernel.{k}_hits"] = v
+        for k, v in self.plan_cache.stats.items():
+            snap[f"plan_cache.{k}"] = v
+        b = self.buffers
+        snap["buffers.cold_copy_bytes"] = b.cold_copy_bytes
+        snap["buffers.host_transfer_bytes"] = b.host_transfer_bytes
+        snap["buffers.boundary_to_host_bytes"] = b.boundary_to_host_bytes
+        snap["buffers.boundary_to_device_bytes"] = b.boundary_to_device_bytes
+        snap["buffers.processing_peak"] = b.processing_peak
+        snap["executor.sync_barriers"] = instrument.sync_barriers.value
+        snap["executor.scalar_syncs"] = instrument.scalar_syncs.value
+        for k, v in strings.stats.items():
+            snap[f"strings.{k}"] = v
+        return snap
 
     # -- executable-plan cache -------------------------------------------------
     def _execute_cached(self, plan: Rel) -> Table:
@@ -482,9 +576,12 @@ class PipelineExecutor:
                 self.last_plan_signature = sig
                 self.last_plan_cache_hit = True
                 return out
-            except instrument.ReplayMismatch:
+            except instrument.ReplayMismatch as exc:
+                JOURNAL.event("plan_cache.poison", "cache",
+                              reason=type(exc).__name__)
                 self.plan_cache.invalidate(sig, mismatch=True)
-        out = self._execute_recording(plan, sig)
+        with JOURNAL.span("plan_cache.record", "cache"):
+            out = self._execute_recording(plan, sig)
         self.last_plan_signature = sig
         return out
 
@@ -615,16 +712,17 @@ class PipelineExecutor:
                 return
             try:
                 entry.compiled = self._capture_replay(entry, side)
-                METRICS.counter("plan_cache.replay_captures").inc()
+                self.metrics.counter("plan_cache.replay_captures").inc()
             except Exception as exc:  # noqa: BLE001 — the closure loop stays
                 entry.compiled = None
                 self.capture_failures += 1
                 self.capture_errors[sig] = f"{type(exc).__name__}: {exc}"
-                METRICS.counter("plan_cache.capture_failures").inc()
+                self.metrics.counter("plan_cache.capture_failures").inc()
         finally:
             dt = time.perf_counter() - t0
             self.compiler.stats["trace_seconds"] += dt
-            METRICS.histogram("pipeline_compiler.trace_seconds").observe(dt)
+            self.metrics.histogram(
+                "pipeline_compiler.trace_seconds").observe(dt)
 
     def _capture_replay(self, entry: ExecutablePlan,
                         stream: torch.cuda.Stream) -> _GraphReplay:
@@ -680,11 +778,17 @@ class PipelineExecutor:
         flags are read after the single final barrier.  A set flag means
         the data under a recorded cardinality changed: ``ReplayMismatch``,
         so the caller invalidates and re-runs cold.  An entry with a
-        captured graph replays it; the rest run the closure loop."""
-        if entry.compiled is not None:
-            self.last_replay_mode = "graph"
-            return self._replay_graph(entry.compiled)
-        self.last_replay_mode = "closure"
+        captured graph replays it; the rest run the closure loop.  Either
+        way the replay is a journal span, whose wall time is the warm
+        dispatch's."""
+        mode = "graph" if entry.compiled is not None else "closure"
+        with JOURNAL.span("plan_cache.replay", "cache", mode=mode):
+            self.last_replay_mode = mode
+            if entry.compiled is not None:
+                return self._replay_graph(entry.compiled)
+            return self._replay_closure(entry)
+
+    def _replay_closure(self, entry: ExecutablePlan) -> Table:
         flags: List = []
         out = self._replay_core(entry, flags)
         flag = torch.stack(flags).any() if flags else None
@@ -731,14 +835,20 @@ class PipelineExecutor:
             entry = None
         if entry is None:
             return None
-        try:
-            out = self._replay_entry(entry)
-        except instrument.ReplayMismatch:
-            self.plan_cache.invalidate(sig, mismatch=True)
-            return None
-        self.last_plan_signature = sig
-        self.last_plan_cache_hit = True
-        self.last_compile_seconds = 0.0
+        with JOURNAL.query_span("engine.execute", entry="warm") as jspan:
+            try:
+                out = self._replay_entry(entry)
+            except instrument.ReplayMismatch as exc:
+                JOURNAL.event("plan_cache.poison", "cache",
+                              reason=type(exc).__name__)
+                self.plan_cache.invalidate(sig, mismatch=True)
+                return None
+            self.last_plan_signature = sig
+            self.last_plan_cache_hit = True
+            self.last_compile_seconds = 0.0
+            self.last_query_id = jspan.query_id
+            jspan.set(plan_cache_hit=True, compile_seconds=0.0,
+                      **self.buffers.watermarks())
         return out
 
     # -- the uncached path ------------------------------------------------------
@@ -766,7 +876,7 @@ class PipelineExecutor:
 
         # profiling serializes pipelines so per-operator wall clocks never
         # overlap (sum of operator times must stay <= query total)
-        n_workers = 1 if self.profile else self.num_workers
+        n_workers = 1 if self._builder is not None else self.num_workers
 
         def finish():
             # wake every idle worker at once (the reference polls its queue
@@ -805,7 +915,7 @@ class PipelineExecutor:
         if errors:
             raise errors[0]
         out = final.sink.result.table
-        if out is not None and not self.profile:
+        if out is not None and not self.profile and not self._analyze:
             # the query's single host wait: materialize the result table
             instrument.barrier(self.device)
         return out
@@ -822,9 +932,14 @@ class PipelineExecutor:
                     mask = evaluate(source.filter, t)
                     out = t.filter_mask(mask.data)
                 t = out
-                if self.profile:
+                if self._builder is not None:
                     instrument.barrier(self.device)
-                    self.op_times["filter"] += time.perf_counter() - t0
+                    dt = time.perf_counter() - t0
+                    # keeps the pushed-down filter attributable as "filter"
+                    # in the profile (the scan record subtracts it)
+                    self._scan_filter_s = dt
+                    if self.profile:
+                        self.op_times["filter"] += dt
             if source.columns:
                 keep = [c for c in source.columns if c in t]
                 if skip_filter and source.filter is not None:
@@ -861,19 +976,31 @@ class PipelineExecutor:
             if p.source.columns:
                 ops.append(SelectOp(p.source.columns))
             ops += list(p.ops)
+        builder = self._builder
         with instrument.pipeline_scope():
+            rec = None
+            if builder is not None:
+                rec = self._start_profiled_pipeline(p, builder)
+                t0 = time.perf_counter()
             src = self._source_table(p.source, skip_filter=fuse_scan_filter)
+            if builder is not None:
+                instrument.barrier(self.device)
+                self._record_scan(p, src, rec, builder,
+                                  time.perf_counter() - t0)
             approx_bytes = max(src.nbytes, 1)
             self.buffers.alloc_processing(approx_bytes)
             try:
                 if self.profile:
-                    self._run_profiled(p, src)
+                    self._run_profiled(p, src, rec)
                     return
                 # asynchronous device work: downstream pipelines consume the
                 # sink's tensors without a barrier; the single wait is at
                 # the query's final sink
                 stages = (self.compiler.prepare(ops, self.backend)
                           if self.compile_pipelines else ops)
+                if builder is not None:
+                    self._run_analyzed(p, src, stages, rec, builder)
+                    return
                 for morsel in self._morsels(src):
                     t = morsel
                     for stage in stages:
@@ -883,24 +1010,123 @@ class PipelineExecutor:
             finally:
                 self.buffers.free_processing(approx_bytes)
 
-    def _run_profiled(self, p: Pipeline, src: Table) -> None:
+    def _start_profiled_pipeline(self, p: Pipeline,
+                                 builder: ProfileBuilder) -> PipelineProfile:
+        self._scan_filter_s = 0.0
+        label = (f"scan:{p.source.table}" if isinstance(p.source, ReadRel)
+                 else "result")
+        return builder.start_pipeline(label, list(p.deps))
+
+    def _record_scan(self, p: Pipeline, src: Table, rec: PipelineProfile,
+                     builder: ProfileBuilder, seconds: float) -> None:
+        """The pipeline's source as its first operator: a base table's scan
+        (rows in are the table's), split into the fetch and a pushed-down
+        ``ReadRel`` filter where one ran, so the breakdown stays exact by
+        category; a breaker's result otherwise."""
+        label = rec.source
+        base_rows = (self.buffers.get(p.source.table).num_rows
+                     if isinstance(p.source, ReadRel) else src.num_rows)
+        filt_s = self._scan_filter_s
+        if filt_s > 0:
+            builder.add_operator(rec, label, "scan", base_rows, base_rows,
+                                 max(seconds - filt_s, 0.0))
+            builder.add_operator(rec, "ReadFilter", "filter", base_rows,
+                                 src.num_rows, filt_s)
+        else:
+            builder.add_operator(rec, label, "scan", base_rows, src.num_rows,
+                                 seconds)
+
+    @staticmethod
+    def _stage_telemetry(stage):
+        """Name, category and attributes of a pipeline stage, read *after*
+        its timer stopped.  A fused region also reports its cache hit,
+        whether it degraded to its eager ops, and its cost estimate
+        (``est_flops`` / ``est_bytes``, ``_CompiledRegion.cost_summary``),
+        computed here, outside the stage's wall-clock window."""
+        if isinstance(stage, FusedSegment):
+            info = stage.last_call_info or {}
+            attrs = {}
+            if "cache_hit" in info:
+                attrs["cache_hit"] = bool(info["cache_hit"])
+            if info.get("degraded"):
+                attrs["degraded"] = True
+            region = info.get("region")
+            if region is not None and "cost_args" in info:
+                attrs.update(region.cost_summary(*info["cost_args"]))
+            return stage.describe(), "fused", attrs
+        return type(stage).__name__, getattr(stage, "category", "other"), {}
+
+    def _run_analyzed(self, p: Pipeline, src: Table, stages,
+                      rec: PipelineProfile, builder: ProfileBuilder) -> None:
+        """EXPLAIN ANALYZE: the *same* stages as the default path (fused
+        regions included) plus a barrier and a timer per stage.  The extra
+        barriers are the point: they pin wall time onto operators that
+        asynchronous launches would otherwise smear into the final sink."""
+        pushed = 0
+        sink_s = 0.0
+        for morsel in self._morsels(src):
+            t = morsel
+            for stage in stages:
+                rows_in = t.num_rows
+                t0 = time.perf_counter()
+                t = stage(t)
+                instrument.barrier(self.device)
+                dt = time.perf_counter() - t0
+                name, cat, attrs = self._stage_telemetry(stage)
+                builder.add_operator(rec, name, cat, rows_in, t.num_rows, dt,
+                                     **attrs)
+            pushed += t.num_rows
+            t0 = time.perf_counter()
+            p.sink.push(t)
+            sink_s += time.perf_counter() - t0
+        t0 = time.perf_counter()
+        p.sink.finalize()
+        out = p.sink.result.table
+        if out is not None:
+            instrument.barrier(self.device)
+        sink_s += time.perf_counter() - t0
+        builder.add_operator(rec, type(p.sink).__name__, p.sink.category,
+                             pushed, out.num_rows if out is not None else 0,
+                             sink_s)
+
+    def _run_profiled(self, p: Pipeline, src: Table,
+                      rec: Optional[PipelineProfile] = None) -> None:
         """Eager per-op dispatch with a barrier + timer per operator, feeding
-        the Figure-5 breakdown (``op_times`` by category)."""
+        the Figure-5 breakdown (``op_times`` by category) and, where a
+        profile builder is live, the query's ``QueryProfile``."""
+        builder = self._builder
+        pushed = 0
+        sink_s = 0.0
         for morsel in self._morsels(src):
             t = morsel
             for op in p.ops:
+                rows_in = t.num_rows
                 t0 = time.perf_counter()
                 t = op(t)
                 instrument.barrier(self.device)
-                self.op_times[op.category] += time.perf_counter() - t0
+                dt = time.perf_counter() - t0
+                self.op_times[op.category] += dt
+                if builder is not None:
+                    builder.add_operator(rec, type(op).__name__, op.category,
+                                         rows_in, t.num_rows, dt)
+            pushed += t.num_rows
             t0 = time.perf_counter()
             p.sink.push(t)
-            self.op_times[p.sink.category] += time.perf_counter() - t0
+            dt = time.perf_counter() - t0
+            self.op_times[p.sink.category] += dt
+            sink_s += dt
         t0 = time.perf_counter()
         p.sink.finalize()
-        if p.sink.result.table is not None:
+        out = p.sink.result.table
+        if out is not None:
             instrument.barrier(self.device)
-        self.op_times[p.sink.category] += time.perf_counter() - t0
+        dt = time.perf_counter() - t0
+        self.op_times[p.sink.category] += dt
+        sink_s += dt
+        if builder is not None:
+            builder.add_operator(rec, type(p.sink).__name__, p.sink.category,
+                                 pushed, out.num_rows if out is not None else 0,
+                                 sink_s)
 
 
 # ---------------------------------------------------------------------------
@@ -922,12 +1148,14 @@ class SiriusEngine:
 
     ``device=None`` picks the current CUDA device and raises if there is
     none; tests pass ``device="cpu"``, where every kernel wrapper runs its
-    plain version."""
+    plain version.  ``metrics`` is the engine's registry (a
+    ``MetricsRegistry(parent=METRICS, label=...)`` mirrors into the
+    process-wide one); ``METRICS`` itself by default."""
 
     def __init__(self, caching_bytes: int = 8 << 30, processing_bytes: int = 8 << 30,
                  num_workers: int = 2, morsel_rows: Optional[int] = None,
                  use_kernels: bool = False, profile: bool = False,
-                 compile_pipelines: bool = True, device=None):
+                 compile_pipelines: bool = True, device=None, metrics=None):
         self.device = torch.device(device) if device is not None else default_device()
         self.buffers = BufferManager(caching_bytes, processing_bytes, self.device)
         backend = None
@@ -935,9 +1163,16 @@ class SiriusEngine:
             from .kernel_backend import KernelBackend
             backend = KernelBackend()
         self.backend = backend
+        self.metrics = metrics if metrics is not None else METRICS
         self.executor = PipelineExecutor(self.buffers, num_workers, morsel_rows,
                                          backend, profile=profile,
-                                         compile_pipelines=compile_pipelines)
+                                         compile_pipelines=compile_pipelines,
+                                         metrics=self.metrics)
+        # journal query ID of the most recent front-door call (sql,
+        # accelerate, execute): how a caller finds its span tree in JOURNAL
+        self.last_query_id: Optional[str] = None
+        # QueryProfile of the most recent analyzed or profiled query
+        self.last_profile: Optional[QueryProfile] = None
         # host-format copies of registered tables (``register``'s
         # ``host_data``): what host fragments and the fallback scan
         self.host_tables: Dict[str, dict] = {}
@@ -983,26 +1218,48 @@ class SiriusEngine:
         if host_data is not None:
             self.host_tables[name] = host_data
 
-    def execute(self, plan: Rel) -> Table:
-        return self.executor.execute(plan)
+    def execute(self, plan: Rel, analyze: bool = False,
+                query_text: Optional[str] = None) -> Table:
+        """Run ``plan``; with ``analyze=True`` (or ``profile=True``) its
+        ``QueryProfile`` lands on ``self.last_profile``."""
+        out = self.executor.execute(plan, analyze=analyze,
+                                    query_text=query_text)
+        self.last_query_id = self.executor.last_query_id
+        if analyze or self.executor.profile:
+            self.last_profile = self.executor.last_profile
+        return out
 
-    def sql(self, text: str, catalog=None, optimize: bool = True) -> Table:
+    def sql(self, text: str, catalog=None, optimize: bool = True,
+            analyze: bool = False):
         """SQL text → parse → optimize → execute.
 
         The optimizer's catalog (default: TPC-H at SF 1) is enriched with
         the registered tables' string dictionaries, so LIKE / IN / prefix
         predicates are costed by their dictionary hit rate.
 
+        ``EXPLAIN ANALYZE <query>`` runs the query with per-operator
+        telemetry and returns its ``QueryProfile`` instead of the result;
+        ``analyze=True`` does the same but returns the result.  Either way
+        the profile lands on ``self.last_profile``, and the analyzed run
+        bypasses the plan cache.
+
         Repeated queries take the warm path: the normalized text keys an
         executable-plan signature, so a hit skips lexer, parser, binder,
         optimizer and lowering and replays the cached entry
-        (``PipelineExecutor.replay_signature``).  The reference's journal
-        span and ``EXPLAIN ANALYZE`` are not ported yet; ``EXPLAIN
-        ANALYZE`` raises."""
-        from ..sql import EXPLAIN_ANALYZE_RE, run_sql
+        (``PipelineExecutor.replay_signature``)."""
+        with JOURNAL.query_span("sql",
+                                text=" ".join(text.split())[:200]) as jq:
+            out = self._sql_impl(text, catalog, optimize, analyze)
+            if jq.query_id is not None:
+                self.last_query_id = jq.query_id
+            return out
+
+    def _sql_impl(self, text: str, catalog, optimize: bool, analyze: bool):
+        from ..sql import EXPLAIN_ANALYZE_RE, run_sql, sql_to_plan
         from ..sql.binder import DEFAULT_CATALOG
-        cacheable = (EXPLAIN_ANALYZE_RE.match(text) is None
-                     and catalog is None and optimize)
+        m = EXPLAIN_ANALYZE_RE.match(text)
+        cacheable = (m is None and not analyze and catalog is None
+                     and optimize)
         if cacheable:
             # (the reference keeps the space before a trailing ";", so
             # "... x ;" misses its cache; the port strips it)
@@ -1014,6 +1271,12 @@ class SiriusEngine:
                     return out
         cat = (catalog or DEFAULT_CATALOG).with_dictionaries(
             self.table_dictionaries)
+        if m or analyze:
+            if m:
+                text = text[m.end():]
+            plan = sql_to_plan(text, catalog=cat, optimize=optimize)
+            out = self.execute(plan, analyze=True, query_text=text.strip())
+            return self.last_profile if m else out
         out = run_sql(text, self, catalog=cat, optimize=optimize)
         if cacheable and self.executor.last_plan_signature is not None:
             self._sql_plan_sigs[key] = self.executor.last_plan_signature
@@ -1038,17 +1301,23 @@ class SiriusEngine:
         key an executable-plan signature (cached only when routing placed
         the whole plan on the device as one fragment), so a hit skips
         ingest and routing and replays the cached entry, as ``sql`` does.
-        ``analyze=True`` needs ``QueryProfile`` (observability/profile.py),
-        the next slice of the port, and raises until then."""
-        if analyze:
-            raise NotImplementedError(
-                "accelerate(analyze=True) needs QueryProfile "
-                "(observability/profile.py), which is not ported yet")
+
+        ``analyze=True`` runs each device fragment analyzed and leaves one
+        merged ``QueryProfile`` on ``self.last_profile``: the device
+        fragments' pipelines (sources prefixed ``frag<N>:``) and one opaque
+        operator per host fragment; it bypasses the wire and plan caches."""
+        with JOURNAL.query_span("wire") as jq:
+            out = self._accelerate_impl(wire_plan, registry, analyze)
+            if jq.query_id is not None:
+                self.last_query_id = jq.query_id
+            return out
+
+    def _accelerate_impl(self, wire_plan, registry, analyze: bool):
         from ..substrait import HybridRouter, ingest, wire_bytes
         from ..substrait.router import host_to_device
 
         wire_key = None
-        if registry is None:
+        if registry is None and not analyze:
             try:
                 if isinstance(wire_plan, bytes):
                     wire_key = wire_plan
@@ -1071,7 +1340,9 @@ class SiriusEngine:
         # a cold run ingests afresh: execution resolves scalar subqueries
         # in place
         plan = ingest(wire_plan)
-        result, report = HybridRouter(self, registry).execute(plan)
+        t0 = time.perf_counter()
+        result, report = HybridRouter(self, registry).execute(
+            plan, analyze=analyze)
         if (wire_key is not None and isinstance(result, Table)
                 and report["host_fragments"] == 0
                 and report["device_fragments"] == 1
@@ -1086,7 +1357,53 @@ class SiriusEngine:
             self.buffers.account_boundary_to_device(result.nbytes)
             report["boundary_to_device_bytes"] += result.nbytes
         self.last_accelerate_report = report
+        if analyze:
+            self.last_profile = self._merge_fragment_profiles(
+                report, plan, time.perf_counter() - t0)
         return result
+
+    def _merge_fragment_profiles(self, report: dict, plan: Rel,
+                                 total_seconds: float) -> QueryProfile:
+        """Stitch the fragments' profiles of an analyzed ``accelerate`` run
+        into one ``QueryProfile``.  Device fragments contribute their
+        pipelines (sources prefixed ``frag<N>:``); a host fragment is one
+        opaque operator, since the numpy engine has no operator clock."""
+        pipelines: List[PipelineProfile] = []
+        compile_s = 0.0
+        metrics: Dict[str, float] = {}
+        for frag in report["fragments"]:
+            prof = frag.pop("_profile", None)
+            fid = frag["fid"]
+            if prof is not None:
+                compile_s += prof.compile_seconds
+                for k, v in prof.metrics.items():
+                    metrics[k] = metrics.get(k, 0) + v
+                for p in prof.pipelines:
+                    pipelines.append(PipelineProfile(
+                        len(pipelines), f"frag{fid}:{p.source}", [],
+                        list(p.operators)))
+            else:
+                rec = PipelineProfile(len(pipelines), f"frag{fid}:host", [])
+                rec.operators.append(OperatorProfile(
+                    "HostFragment", "other", 0,
+                    int(frag.get("rows_out", 0)),
+                    float(frag.get("seconds", 0.0))))
+                pipelines.append(rec)
+        totals: Dict[str, float] = {}
+        for p in pipelines:
+            for op in p.operators:
+                totals[op.category] = totals.get(op.category, 0.0) + op.seconds
+        compile_s = min(max(compile_s, 0.0), total_seconds)
+        return QueryProfile(
+            query=None,
+            engine={"accelerate": True,
+                    "use_kernels": self.backend is not None,
+                    "compile_pipelines": self.executor.compile_pipelines},
+            total_seconds=float(total_seconds),
+            compile_seconds=float(compile_s),
+            execute_seconds=float(max(total_seconds - compile_s, 0.0)),
+            pipelines=pipelines, operator_totals=totals, metrics=metrics,
+            plan=explain(plan), fragments=list(report["fragments"]))
 
     def execute_with_fallback(self, plan: Rel):
         """Run on the device engine; a plan it cannot lower runs on the

@@ -34,6 +34,7 @@ contiguous Filter/Select/Project/Probe chain becomes one region:
 from __future__ import annotations
 
 import dataclasses
+import math
 import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -77,6 +78,23 @@ def expr_signature(e) -> str:
                 parts.append(repr(v))
         return f"{type(e).__name__}({','.join(parts)})"
     return repr(e)
+
+
+def _expr_nodes(e) -> int:
+    """Expression nodes an evaluation of ``e`` visits (0 for None)."""
+    if not isinstance(e, Expr):
+        return 0
+    n = 1
+    if dataclasses.is_dataclass(e):
+        for f in dataclasses.fields(e):
+            v = getattr(e, f.name)
+            if isinstance(v, Expr):
+                n += _expr_nodes(v)
+            elif isinstance(v, (list, tuple)):
+                for x in v:
+                    for y in (x if isinstance(x, tuple) else (x,)):
+                        n += _expr_nodes(y)
+    return n
 
 
 def _table_signature(t: Table) -> Tuple:
@@ -216,12 +234,57 @@ class _CompiledRegion:
         self.failed = False
         self.dict_refs: List = []         # pins dictionary ids for the cache key
         self._traced = set()              # shape keys seen (one trace each)
+        # bytes a row of the input and of the output takes, set at the
+        # first trace; and the lazy cost summary (analyze mode)
+        self.row_bytes = (0, 0)
+        self.cost = None
+
+    def cost_summary(self, n_rows: int, rows_out: int, aux) -> dict:
+        """Estimated FLOPs and bytes of one call of this region.
+
+        The reference reads them from XLA's HLO cost analysis of the
+        compiled region; the port has no compiled program to ask, so it
+        counts them from the region's items: bytes are the input columns
+        read, the probe tables (every tensor of ``aux``) read and the
+        output columns written; FLOPs are the rows times the expression
+        nodes evaluated (filters, projections, post-filters) plus the
+        probe slot reads (one a key for a direct-address table, a binary
+        search over the sorted keys otherwise, plus the first slot of the
+        hash table on the kernel route).  Computed lazily, only where
+        ``analyze=True`` asks, after the stage's timer stopped, from the
+        first such call's rows, and cached per region like the
+        reference's.  It may never fail a query."""
+        if self.cost is None:
+            try:
+                nodes, probes = 0, 0.0
+                tensors = []
+                for item, a in zip(
+                        (i for i in self.items if isinstance(i, _FusedProbe)),
+                        aux):
+                    tensors.extend(_flat_tensors(a))
+                    probes += _probe_reads(item, a[0])
+                for item in self.items:
+                    if isinstance(item, _FusedFilter):
+                        nodes += _expr_nodes(item.cond)
+                    elif isinstance(item, _FusedProject):
+                        nodes += sum(_expr_nodes(e) for _, e in item.exprs)
+                    elif isinstance(item, _FusedProbe):
+                        nodes += _expr_nodes(item.post_filter)
+                in_row, out_row = self.row_bytes
+                nbytes = (n_rows * in_row + rows_out * out_row
+                          + sum(t.numel() * t.element_size() for t in tensors))
+                self.cost = {"est_flops": float(n_rows * (nodes + probes)),
+                             "est_bytes": float(nbytes)}
+            except Exception:  # noqa: BLE001 — an estimate must never fail a query
+                self.cost = {}
+        return self.cost
 
     def run(self, arrays, n_bucket: int, valid, aux):
         """The region body over ``arrays`` (static row count) → (surviving
         rows' index tensor, count tensor, output Table before the gather)."""
         key = (n_bucket, tuple(a.dtype for a in arrays), _shape_key(aux))
-        if key not in self._traced:
+        new_trace = key not in self._traced
+        if new_trace:
             self._traced.add(key)
             self.compiler.stats["traces"] += 1
             METRICS.counter("pipeline_compiler.traces").inc()
@@ -234,8 +297,28 @@ class _CompiledRegion:
                 a = aux[ai]
                 ai += 1
             t, valid = item.apply(t, valid, a)
+        if new_trace:
+            self.row_bytes = (sum(a.element_size() for a in arrays),
+                              sum(c.data.element_size()
+                                  for c in t.columns.values()))
         idx, count = kops.compact(valid)
         return idx, count, t
+
+
+def _flat_tensors(x) -> List[torch.Tensor]:
+    if isinstance(x, torch.Tensor):
+        return [x]
+    if isinstance(x, (tuple, list)):
+        return [t for y in x for t in _flat_tensors(y)]
+    return []
+
+
+def _probe_reads(item: "_FusedProbe", table) -> float:
+    """Slot reads a probe key costs in ``item``'s lookup table."""
+    if item.mode == "direct":
+        return 1.0
+    search = math.log2(max(table[0].shape[0], 2))   # the sorted build keys
+    return search + (1.0 if item.mode == "kernel" else 0.0)
 
 
 class FusedSegment:
@@ -248,6 +331,18 @@ class FusedSegment:
         self.aux = tuple(aux)
         # the items half of the cache key never changes for this segment
         self._items_sig = tuple(i.signature() for i in items)
+        # the last call's telemetry for the analyze path: the region,
+        # whether it was a cache hit or degraded to the eager ops, and the
+        # call's arguments for ``cost_summary`` (its rows in and out; the
+        # probe tables are this segment's own ``aux``).  Host values only,
+        # so a recorded entry pins no tensor through it
+        self.last_call_info: Optional[dict] = None
+
+    def describe(self) -> str:
+        kinds = {"_FusedFilter": "filter", "_FusedSelect": "select",
+                 "_FusedProject": "project", "_FusedProbe": "probe"}
+        return "FusedRegion[" + "+".join(
+            kinds.get(type(i).__name__, "?") for i in self.items) + "]"
 
     def _eager(self, t: Table) -> Table:
         for op in self.eager_ops:
@@ -273,6 +368,7 @@ class FusedSegment:
             self.compiler.stats["cache_hits"] += 1
             METRICS.counter("pipeline_compiler.cache_hits").inc()
         if region.failed:
+            self.last_call_info = {"cache_hit": cache_hit, "degraded": True}
             return self._eager(t)
 
         n = t.num_rows
@@ -286,6 +382,7 @@ class FusedSegment:
             region.failed = True
             self.compiler.stats["declines"] += 1
             METRICS.counter("pipeline_compiler.declines").inc()
+            self.last_call_info = {"cache_hit": cache_hit, "degraded": True}
             return self._eager(t)
         if not cache_hit:
             # a fresh region's first call is its "compile" in the
@@ -296,6 +393,9 @@ class FusedSegment:
         self.compiler.stats["region_calls"] += 1
         METRICS.counter("pipeline_compiler.region_calls").inc()
         k = pull_scalar(count)   # the region's single scalar pull
+        self.last_call_info = {"cache_hit": cache_hit, "degraded": False,
+                               "region": region,
+                               "cost_args": (n, k, self.aux)}
         return out.take(idx[:k])
 
 

@@ -156,8 +156,11 @@ class ExecutablePlan:
 class PlanCache:
     """LRU map: plan signature → ExecutablePlan (cleared on register())."""
 
-    def __init__(self, max_entries: int = 256):
+    def __init__(self, max_entries: int = 256, metrics=None):
         self.max_entries = max_entries
+        # instance-scoped registry (a per-engine one, mirrored into the
+        # process-global METRICS); defaults to METRICS itself
+        self.metrics = metrics if metrics is not None else METRICS
         self._entries: "OrderedDict[str, ExecutablePlan]" = OrderedDict()
         self.stats = {"hits": 0, "misses": 0, "inserts": 0, "evictions": 0,
                       "invalidations": 0, "replay_mismatches": 0}
@@ -169,35 +172,35 @@ class PlanCache:
         entry = self._entries.get(sig)
         if entry is None:
             self.stats["misses"] += 1
-            METRICS.counter("plan_cache.misses").inc()
+            self.metrics.counter("plan_cache.misses").inc()
             return None
         self._entries.move_to_end(sig)
         self.stats["hits"] += 1
         entry.hits += 1
-        METRICS.counter("plan_cache.hits").inc()
+        self.metrics.counter("plan_cache.hits").inc()
         return entry
 
     def store(self, sig: str, entry: ExecutablePlan) -> None:
         self._entries[sig] = entry
         self._entries.move_to_end(sig)
         self.stats["inserts"] += 1
-        METRICS.counter("plan_cache.inserts").inc()
+        self.metrics.counter("plan_cache.inserts").inc()
         while len(self._entries) > self.max_entries:
             self._entries.popitem(last=False)
             self.stats["evictions"] += 1
-            METRICS.counter("plan_cache.evictions").inc()
+            self.metrics.counter("plan_cache.evictions").inc()
 
     def invalidate(self, sig: str, mismatch: bool = False) -> None:
         if self._entries.pop(sig, None) is not None:
             self.stats["invalidations"] += 1
-            METRICS.counter("plan_cache.invalidations").inc()
+            self.metrics.counter("plan_cache.invalidations").inc()
         if mismatch:
             self.stats["replay_mismatches"] += 1
-            METRICS.counter("plan_cache.replay_mismatches").inc()
+            self.metrics.counter("plan_cache.replay_mismatches").inc()
 
     def clear(self) -> None:
         if self._entries:
             self.stats["invalidations"] += len(self._entries)
-            METRICS.counter("plan_cache.invalidations").inc(
+            self.metrics.counter("plan_cache.invalidations").inc(
                 len(self._entries))
         self._entries.clear()

@@ -22,10 +22,10 @@ Entry points (this module):
     execution on a ``SiriusEngine`` (device ``Table`` result), a
     ``FallbackEngine`` or a host-format dict-of-dicts (host dict result);
   * ``explain_sql(sql, catalog=None)`` — naive and optimized plans side by
-    side with cardinality annotations.
-
-``EXPLAIN ANALYZE`` needs ``observability/profile.py``'s ``QueryProfile``,
-the next slice of the port, and raises ``NotImplementedError`` until then.
+    side with cardinality annotations;
+  * ``EXPLAIN ANALYZE <query>`` — recognized as a prefix by ``run_sql`` and
+    ``SiriusEngine.sql``: the query runs with per-operator telemetry and
+    the ``QueryProfile`` comes back instead of the rows.
 
 ``Catalog`` supplies table schemas, row estimates and (optionally, via
 ``Catalog.with_dictionaries``) string dictionaries for the optimizer's
@@ -102,13 +102,18 @@ def run_sql(sql: str, db, catalog: Optional[Catalog] = None,
       * a ``FallbackEngine``: the numpy engine; returns a host-format dict;
       * ``dict[table] -> dict[col] -> np.ndarray``: host data, run on a
         fresh ``FallbackEngine``.
+
+    ``EXPLAIN ANALYZE <query>`` delegates to ``db.sql`` (the engine that
+    profiles) and returns the ``QueryProfile``; a host dict or a
+    ``FallbackEngine`` has no operator clock and raises ``SqlError``.
     """
     from ..core.fallback import FallbackEngine
 
     if EXPLAIN_ANALYZE_RE.match(sql):
-        raise NotImplementedError(
-            "EXPLAIN ANALYZE needs QueryProfile (observability/profile.py), "
-            "the next slice of the port, which is not ported yet")
+        if hasattr(db, "sql"):
+            return db.sql(sql, catalog=catalog, optimize=optimize)
+        raise SqlError("EXPLAIN ANALYZE requires a profiling engine "
+                       "(SiriusEngine); got " + type(db).__name__)
     plan = sql_to_plan(sql, catalog, optimize)
     if isinstance(db, dict):
         return FallbackEngine(db).execute(plan)

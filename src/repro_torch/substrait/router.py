@@ -129,9 +129,9 @@ class HybridRouter:
         device ``Table`` when the root fragment ran on device, a host dict
         otherwise; the report carries fragment placements and boundary
         traffic.  With ``analyze=True`` each fragment entry also gets its
-        wall-clock ``seconds`` and ``rows_out``; the reference's
-        per-operator ``"_profile"`` of device fragments waits for
-        ``observability/profile.py``."""
+        wall-clock ``seconds`` and ``rows_out``, and a device fragment its
+        per-operator ``QueryProfile`` under ``"_profile"`` (popped by
+        ``SiriusEngine.accelerate`` when it merges the query's profile)."""
         from ..core.fallback import FallbackEngine
 
         fragments = self.plan_fragments(plan)
@@ -163,9 +163,13 @@ class HybridRouter:
                     prev_cache = executor.cache_enabled
                     executor.cache_enabled = prev_cache and not frag.deps
                     try:
-                        out: Any = executor.execute(frag.plan)
+                        out: Any = executor.execute(frag.plan,
+                                                    analyze=analyze)
                     finally:
                         executor.cache_enabled = prev_cache
+                    if analyze:
+                        frag_info[frag.fid] = {
+                            "_profile": executor.last_profile}
                 else:
                     host_tables = dict(self.engine.host_tables)
                     for d in frag.deps:

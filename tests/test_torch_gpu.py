@@ -843,3 +843,80 @@ def test_accelerate_hybrid_plan_stays_on_card(tpch_small):
     assert eng.buffers.boundary_to_device_bytes - d0 == \
         report["boundary_to_device_bytes"] > 0
     _same(got.to_host(), FallbackEngine(tpch_small).execute(plan()))
+
+
+# ---------------------------------------------------------------------------
+# EXPLAIN ANALYZE and the journal on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("use_kernels", [False, True])
+def test_analyzed_q6_equals_plain_and_keeps_the_warm_barrier_on_card(
+        tpch_small, use_kernels):
+    """An analyzed Q6 equals the plain run and takes more than one barrier;
+    the plain warm run after it is still a replay with one barrier and no
+    scalar sync (one CUDA graph without kernels)."""
+    from repro_torch.core import instrument
+    from repro_torch.data.tpch_queries import QUERIES
+    from repro_torch.observability import validate_profile
+    eng = _loaded(tpch_small, use_kernels=use_kernels)
+    want = eng.execute(QUERIES[6]()).to_host()
+    eng.execute(QUERIES[6]())
+    barriers = instrument.sync_barriers.value
+    got = eng.execute(QUERIES[6](), analyze=True)
+    assert instrument.sync_barriers.value - barriers > 1
+    assert got.device.type == "cuda"
+    _same(got.to_host(), want)
+    prof = eng.last_profile.to_dict()
+    assert validate_profile(prof) == []
+    assert prof["pipelines"][-1]["operators"][-1]["rows_out"] == got.num_rows
+    barriers = instrument.sync_barriers.value
+    syncs = instrument.scalar_syncs.value
+    warm = eng.execute(QUERIES[6]())
+    assert eng.executor.last_plan_cache_hit
+    assert eng.executor.last_replay_mode == (
+        "closure" if use_kernels else "graph")
+    assert instrument.sync_barriers.value - barriers == 1
+    assert instrument.scalar_syncs.value == syncs
+    _same(warm.to_host(), want)
+
+
+def test_journal_clean_of_a_cuda_tensor_neither_copies_nor_syncs_on_card(dev):
+    """With the card busy (a spin kernel queued), describing CUDA tensors as
+    journal attributes copies nothing to the host and does not wait: the
+    stream is still busy after."""
+    from repro_torch.core import instrument
+    from repro_torch.observability.journal import JOURNAL
+    x = torch.arange(1 << 20, device=dev)
+    s = torch.tensor(2.5, device=dev)
+    torch.cuda.synchronize(dev)
+    with instrument.track_transfers() as counter:
+        torch.cuda._sleep(1 << 30)            # ~0.5 s of device spin
+        attrs = JOURNAL._clean({"cols": x, "k": s})
+        busy = not torch.cuda.current_stream(dev).query()
+    torch.cuda.synchronize(dev)
+    assert counter.total == 0
+    assert busy, "describing a CUDA tensor waited for the device"
+    assert attrs["cols"] == \
+        "Tensor(shape=(1048576,), dtype=torch.int64, device=cuda:0)"
+    assert attrs["k"] == "Tensor(shape=(), dtype=torch.float32, device=cuda:0)"
+
+
+def test_chrome_trace_of_an_engine_query_on_card(tpch_small):
+    from repro_torch.data.tpch_queries import SQL_QUERIES
+    from repro_torch.observability.dist import verify_tree
+    from repro_torch.observability.journal import JOURNAL, to_chrome
+    eng = _loaded(tpch_small)
+    eng.sql(SQL_QUERIES[6])
+    eng.sql(SQL_QUERIES[6])
+    evs = JOURNAL.events(eng.last_query_id)
+    assert verify_tree(evs, eng.last_query_id) == []
+    d = to_chrome(evs, epoch=JOURNAL.epoch)
+    spans = [e for e in d["traceEvents"] if e["ph"] == "X"]
+    assert {e["name"] for e in spans} == {"sql", "engine.execute",
+                                          "plan_cache.replay"}
+    assert all(e["dur"] > 0 for e in spans)
+    assert [e["args"]["name"] for e in d["traceEvents"]
+            if e["ph"] == "M"] == ["coordinator"]
+    replay = next(e for e in spans if e["name"] == "plan_cache.replay")
+    assert replay["args"]["mode"] == "graph"

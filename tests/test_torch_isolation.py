@@ -32,7 +32,9 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
         "repro_torch.models.lm, repro_torch.models.convert, "
         "repro_torch.serve_lm, repro_torch.substrait, "
         "repro_torch.substrait.wire, repro_torch.substrait.router, "
-        "repro_torch.core.fallback\n"
+        "repro_torch.core.fallback, repro_torch.observability, "
+        "repro_torch.observability.profile, repro_torch.observability.journal, "
+        "repro_torch.observability.tracer, repro_torch.observability.dist\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
         "print(','.join(bad))\n")

@@ -120,12 +120,15 @@ def test_explain_sql_shows_both_plans():
 
 
 def test_unported_entry_points_say_what_is_missing():
-    """EXPLAIN ANALYZE waits for the next slice; a host-format database now
-    runs on the port's FallbackEngine (tests/test_torch_fallback.py)."""
+    """EXPLAIN ANALYZE needs an engine that profiles: on anything without
+    ``sql`` (host data, a FallbackEngine) ``run_sql`` says so, as the
+    reference does (tests/test_torch_observability.py runs it on an
+    engine); a host-format database runs on the port's FallbackEngine
+    (tests/test_torch_fallback.py)."""
     assert EXPLAIN_ANALYZE_RE.match("  EXPLAIN analyze select 1")
-    with pytest.raises(NotImplementedError, match="QueryProfile.*next slice"):
+    with pytest.raises(SqlError, match="EXPLAIN ANALYZE requires a profiling"):
         run_sql("explain analyze " + SQL_QUERIES[6], object())
-    with pytest.raises(NotImplementedError, match="QueryProfile"):
+    with pytest.raises(SqlError, match="got dict"):
         run_sql("explain analyze " + SQL_QUERIES[6], {"lineitem": {}})
     lineitem = {"l_shipdate": np.array(["1994-06-01"], "datetime64[D]"),
                 "l_discount": np.array([0.06]), "l_quantity": np.array([1.0]),

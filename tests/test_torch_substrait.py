@@ -589,5 +589,14 @@ def test_hybrid_wires_are_never_wire_cached(port_engine):
 
 
 def test_accelerate_analyze_waits_for_query_profile(port_engine):
-    with pytest.raises(NotImplementedError, match="observability/profile.py"):
-        port_engine.accelerate(_golden("tpch_q6"), analyze=True)
+    """``analyze=True`` runs the wire and merges its fragments' profiles
+    (tests/test_torch_observability.py holds the merge further)."""
+    from repro_torch.observability import QueryProfile, validate_profile
+    want = port_engine.accelerate(_golden("tpch_q6")).to_host()
+    got = port_engine.accelerate(_golden("tpch_q6"), analyze=True).to_host()
+    assert_tables_equal(got, want)
+    prof = port_engine.last_profile
+    assert isinstance(prof, QueryProfile)
+    assert validate_profile(prof.to_dict()) == []
+    assert [f["placement"] for f in prof.fragments] == ["device"]
+    assert "_profile" not in prof.fragments[0]

@@ -112,6 +112,28 @@ nothing of JAX or of the JAX package ``repro``, and:
    ``t_off * 1.05 + 2 ms``; and the journal calls of a warm run timed
    alone, on and off.  Q3's ``pretty()`` and a Chrome trace of Q3's
    SQL text go to ``build/``; the kernels of both SQL paths must launch;
+5d. drives distributed execution: ``DistributedEngine`` over phase 4's
+   SF1 host dicts and phase 5's ``hits`` on ``DIST_SHARDS`` logical shards
+   that share the card (an exchange is a permutation in device memory and
+   a host round trip through the registry, not NVLink): the 22 hand-built
+   TPC-H plans with ``use_kernels=True`` and again without, and the 15
+   ClickBench queries with the kernels, each cold once and warm three
+   times, every result held against the eager engine over phase 4's and
+   5's tensors (integer, date and string columns row-exact, floats within
+   ``DIST_RTOL``); no shard may fall back to the host, each query's journal
+   tree must verify, the TPC-H sweep must launch ``filter_mask_counts``,
+   ``hash_probe``, ``groupby_sum`` and ``join_expand`` (ClickBench
+   ``groupby_sum``; its ORDER BY ... LIMIT tails run on the coordinator's
+   host engine, as in the reference) and the generic sweep none.  Then
+   the fault scenarios of ``tests/_dist_worker.py`` on
+   ``DIST_FAULT_SHARDS`` shards at SF1, Q3: checkpoint resume, node
+   failure (one recovery, one shard fewer), a straggler (its fragment
+   speculated, and the late primary never runs), predicate transfer on Q3
+   and Q10 (where it must prune rows); prime
+   row counts (Q1, Q3, Q6, Q12, Q18) and an overflowing shuffle that
+   retries with doubled buckets.  It prints one line per query (fragments,
+   exchanges with their bytes per shard, skew and rows, the timers, cold
+   and warm ms) and the phase's seconds and peak device memory;
 6. drives the LM serving path: ``serve_lm``'s workload (``llama3.2-3b``
    at full width, 28 layers, random bf16 weights from its seed) on the
    card.  For models and tokens from three seeds, teacher-forced
@@ -248,7 +270,22 @@ PATH_KERNELS = {
                    "join_expand", "topk_select"),
     "analyze": ("filter_mask_counts", "groupby_sum", "hash_probe",
                 "join_expand", "topk_select"),
+    # ORDER BY ... LIMIT runs on the coordinator's host engine, as in the
+    # reference, so the distributed ClickBench path has no top-k
+    "distributed_tpch": ("filter_mask_counts", "groupby_sum", "hash_probe",
+                         "join_expand"),
+    "distributed_clickbench": ("groupby_sum",),
 }
+# phase 5d: the logical shards of the distributed sweeps and of the fault
+# scenarios (tests/_dist_worker.py's 8); partial aggregates re-associate
+# float sums across shards, so floats are held at that worker's rtol 2e-5
+# (atol 1e-6); the least injected straggler delay; the timers each
+# query's line prints
+DIST_SHARDS = 4
+DIST_FAULT_SHARDS = 8
+DIST_RTOL = 2e-5
+STRAGGLE_S = 2.0
+DIST_TIMERS = ("compute", "exchange", "compile", "other", "total")
 # phase 5c: the warm replays a query runs with the journal on and with it
 # off, and the calls of a warm run's journal spans timed alone
 JOURNAL_REPEATS = 31
@@ -880,8 +917,8 @@ def run_check(check: str, src: Path = ROOT / "src") -> dict:
 # ---------------------------------------------------------------------------
 
 
-def compare_tables(got: dict, want: dict):
-    """Row-exact for non-float columns, rtol 1e-6 for floats
+def compare_tables(got: dict, want: dict, rtol: float = 1e-6):
+    """Row-exact for non-float columns, ``rtol`` (atol 1e-6) for floats
     → (max relative error, its column)."""
     if set(got) != set(want):
         raise AssertionError(f"columns differ: {sorted(got)} vs {sorted(want)}")
@@ -892,7 +929,7 @@ def compare_tables(got: dict, want: dict):
             raise AssertionError(f"column {k}: shapes {a.shape} vs {b.shape}")
         if a.dtype.kind == "f" or b.dtype.kind == "f":
             np.testing.assert_allclose(a.astype(float), b.astype(float),
-                                       rtol=1e-6, atol=1e-6, err_msg=k)
+                                       rtol=rtol, atol=1e-6, err_msg=k)
             rel = np.abs(a - b) / np.maximum(np.abs(b), 1e-300)
             if rel.size and float(rel.max()) >= worst:
                 worst, worst_col = float(rel.max()), k
@@ -1896,6 +1933,277 @@ def run_analyze(card: str, tpch_tables: dict, tpch_db: dict, cb_table,
 
 
 # ---------------------------------------------------------------------------
+# phase 5d: distributed execution on logical shards
+# ---------------------------------------------------------------------------
+
+
+def _dist_row(eng, qid, cold_s: float, warm_s: float, names) -> dict:
+    """One distributed query's line: fragments, exchanges, timers, times."""
+    return {"query": qid, "fragments": len(names),
+            "exchanges": [{k: s[k] for k in ("fragment", "kind", "key",
+                                             "bytes_per_shard", "skew_ratio",
+                                             "rows_out")}
+                          for s in eng.exchange_summary()],
+            "timers_ms": {k: eng.timers[k] * 1e3 for k in DIST_TIMERS},
+            "cold_ms": cold_s * 1e3, "warm_ms": warm_s * 1e3}
+
+
+def run_distributed(card: str, dev, tpch_tables: dict, tpch_db: dict,
+                    cb_table, cb_db: dict) -> dict:
+    """``DistributedEngine`` on ``DIST_SHARDS`` logical shards sharing the
+    card: the 22 TPC-H plans with and without the kernels, the 15
+    ClickBench queries with them, and the fault scenarios of
+    ``tests/_dist_worker.py`` on ``DIST_FAULT_SHARDS`` shards, every result
+    held against the eager engine on the same card (phase 4's yardstick,
+    over phase 4's and 5's tensors) within ``DIST_RTOL``."""
+    import tempfile
+
+    import torch
+    from repro_torch.core.distributed import DistributedEngine
+    from repro_torch.core.executor import SiriusEngine
+    from repro_torch.core.plan import AggregateRel, ReadRel, SortRel
+    from repro_torch.data import clickbench as cb
+    from repro_torch.data.tpch import load_into_engine
+    from repro_torch.data.tpch_queries import QUERIES
+    from repro_torch.kernels import build
+    from repro_torch.observability.dist import verify_tree
+    from repro_torch.observability.journal import JOURNAL
+    from repro_torch.observability.metrics import METRICS
+    from repro_torch.relational.aggregate import AggSpec
+    from repro_torch.relational.expressions import Col
+    from repro_torch.relational.sort import SortKey
+    from repro_torch.relational.table import Table
+    from repro_torch.runtime.control import FaultInjector, FaultPlan
+    from repro_torch.sql import sql_to_plan
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    fallbacks = METRICS.counter("distributed.shard_fallbacks")
+    fallbacks0 = fallbacks.value
+
+    def eager(tables: dict):
+        e = SiriusEngine(use_kernels=False, compile_pipelines=False)
+        for name, t in tables.items():
+            e.register(name, t)
+        return e
+
+    def dist(db, n=DIST_SHARDS, **kw):
+        t = time.perf_counter()
+        e = DistributedEngine(db, n_shards=n, device=dev, **kw)
+        torch.cuda.synchronize()
+        return e, time.perf_counter() - t
+
+    def timed(eng, plan_fn):
+        t = time.perf_counter()
+        out = eng.run_plan(plan_fn())
+        return out, time.perf_counter() - t
+
+    def checked(eng, got, want, what: str) -> float:
+        err, _ = compare_tables(got, want, rtol=DIST_RTOL)
+        evs = JOURNAL.events(eng.last_query_id)
+        problems = verify_tree(evs, eng.last_query_id)
+        if problems:
+            raise AssertionError(f"{what}: journal tree {problems[:3]}")
+        if fallbacks.value != fallbacks0:
+            raise AssertionError(f"{what}: {fallbacks.value - fallbacks0} "
+                                 f"shard(s) fell back to the host")
+        return err
+
+    def sweep(eng, plans: dict, wants: dict, what: str, warm_runs: int):
+        rows = []
+        for qid, plan_fn in plans.items():
+            names = eng.program_names(plan_fn())
+            got, cold = timed(eng, plan_fn)
+            err = checked(eng, got, wants[qid], f"{what} {qid}")
+            warm = [timed(eng, plan_fn) for _ in range(warm_runs)]
+            for out, _ in warm:
+                compare_tables(out, wants[qid], rtol=DIST_RTOL)
+            row = _dist_row(eng, qid, cold, statistics.median(
+                s for _, s in warm) if warm else float("nan"), names)
+            row["max_rel_err"] = err
+            emit({"phase": "distributed_query", "engine": what, **row})
+            rows.append(row)
+        return rows
+
+    # the yardstick: the eager engine over phase 4's and 5's tensors
+    yard = eager(tpch_tables)
+    tpch_plans = {f"Q{q}": (lambda q=q: QUERIES[q]()) for q in sorted(QUERIES)}
+    tpch_want = {k: yard.execute(fn()).to_host() for k, fn in tpch_plans.items()}
+    cat = cb.clickbench_catalog(CB_ROWS)
+    cb_plans = {q: (lambda sql=sql: sql_to_plan(sql, catalog=cat))
+                for q, sql in cb.CLICKBENCH_QUERIES.items()}
+    cb_yard = eager({"hits": cb_table})
+    cb_want = {k: cb_yard.execute(fn()).to_host() for k, fn in cb_plans.items()}
+    del yard, cb_yard
+
+    result = {"shards": DIST_SHARDS, "launches_by_sweep": {}, "load_s": {}}
+
+    # TPC-H with the kernels: every kernel of the TPC-H path must launch
+    eng, result["load_s"]["tpch_kernels"] = dist(tpch_db, use_kernels=True)
+    build.reset_launch_counts()
+    result["tpch_kernels"] = sweep(eng, tpch_plans, tpch_want, "kernels",
+                                   WARM_RUNS)
+    launches = build.launch_counts()
+    result["launches_by_sweep"]["tpch_kernels"] = launches
+    missing = [k for k in PATH_KERNELS["distributed_tpch"] if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the distributed "
+                             f"TPC-H path: {missing}")
+    del eng
+
+    # TPC-H on the generic tier: no kernel may launch
+    eng, result["load_s"]["tpch_generic"] = dist(tpch_db, use_kernels=False)
+    build.reset_launch_counts()
+    result["tpch_generic"] = sweep(eng, tpch_plans, tpch_want, "generic",
+                                   WARM_RUNS)
+    launched = {k: n for k, n in build.launch_counts().items() if n}
+    if launched:
+        raise AssertionError(f"the generic tier launched kernels: {launched}")
+    del eng
+
+    # ClickBench with the kernels (ORDER BY ... LIMIT tails run on the
+    # coordinator's host engine, as in the reference: no top-k here)
+    eng, result["load_s"]["clickbench"] = dist(cb_db, use_kernels=True)
+    build.reset_launch_counts()
+    result["clickbench"] = sweep(eng, cb_plans, cb_want, "clickbench",
+                                 WARM_RUNS)
+    launches = build.launch_counts()
+    result["launches_by_sweep"]["clickbench"] = launches
+    missing = [k for k in PATH_KERNELS["distributed_clickbench"]
+               if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the distributed "
+                             f"ClickBench path: {missing}")
+    del eng
+
+    # the fault scenarios of tests/_dist_worker.py at SF1, Q3
+    build.reset_launch_counts()
+    faults = {}
+    q3 = tpch_plans["Q3"]
+    with tempfile.TemporaryDirectory() as d:
+        eng, _ = dist(tpch_db, DIST_FAULT_SHARDS, use_kernels=True,
+                      checkpoint_dir=d)
+        names = eng.program_names(3)
+        target = names[-2]
+        got, _ = timed(eng, q3)
+        checked(eng, got, tpch_want["Q3"], "fault: first run")
+        # checkpoint: a new engine resumes after the second-to-last fragment
+        eng2, _ = dist(tpch_db, DIST_FAULT_SHARDS, use_kernels=True,
+                       checkpoint_dir=d)
+        t = time.perf_counter()
+        got = eng2.run_query(3, resume=True)
+        s = time.perf_counter() - t
+        checked(eng2, got, tpch_want["Q3"], "fault: checkpoint resume")
+        if eng2.timers.get("resumed_from") != len(names) - 1:
+            raise AssertionError(f"resumed from {eng2.timers.get('resumed_from')}"
+                                 f", expected {len(names) - 1}")
+        faults["checkpoint"] = {"resumed_from": eng2.timers["resumed_from"],
+                                "fragments": len(names), "ms": s * 1e3}
+        # node failure: one recovery, one shard fewer, the same result
+        inj = FaultInjector([FaultPlan(fragment=target, node=3, times=1)])
+        eng2.injector = inj
+        got, s = timed(eng2, q3)
+        checked(eng2, got, tpch_want["Q3"], "fault: node failure")
+        if (eng2.recoveries, eng2.n_shards, inj.tripped) != \
+                (1, DIST_FAULT_SHARDS - 1, [target]):
+            raise AssertionError(
+                f"node failure: recoveries {eng2.recoveries}, shards "
+                f"{eng2.n_shards}, tripped {inj.tripped}")
+        faults["node_failure"] = {"recoveries": eng2.recoveries,
+                                  "shards_after": eng2.n_shards,
+                                  "ms": s * 1e3}
+        del eng2
+        # straggler: a delay well past the speculation budget; the backup's
+        # result is taken, and the primary that wakes after it never runs
+        # the fragment
+        sr = eng.speculative
+        budget = max(sr.min_budget_s,
+                     sr.budget_factor * sr.history.get(target, 0.0))
+        delay = max(STRAGGLE_S, 2 * budget)
+        eng.injector = FaultInjector([FaultPlan(fragment=target, node=2,
+                                                times=1, delay_s=delay)])
+        n_spec = len(sr.speculated)
+        got, s = timed(eng, q3)
+        checked(eng, got, tpch_want["Q3"], "fault: straggler")
+        qid = eng.last_query_id
+        backups = [e["attrs"]["fragment"] for e in JOURNAL.events(qid)
+                   if e["name"] == "speculative_backup"]
+        if target not in sr.speculated[n_spec:] or target not in backups:
+            raise AssertionError(f"straggler: {target} not speculated "
+                                 f"({sr.speculated[n_spec:]}, {backups})")
+        time.sleep(delay + 1.0)
+        late = [e for e in JOURNAL.events(qid) if e["cat"] == "attempt"
+                and e["name"] == f"{target}:primary"]
+        if late:
+            raise AssertionError(f"straggler: the late primary ran ({late[0]})")
+        faults["straggler"] = {"speculated": list(sr.speculated),
+                               "delay_s": delay, "ms": s * 1e3}
+        # predicate transfer: on Q3 (whose placement has no shuffle join to
+        # pre-filter) and on Q10 (whose lineitem shuffle it prunes by the
+        # date-filtered orders)
+        pruned = METRICS.counter("distributed.predicate_transfer_rows_pruned")
+        eng.predicate_transfer = True
+        for q in ("Q3", "Q10"):
+            pruned0 = pruned.value
+            got, s = timed(eng, tpch_plans[q])
+            checked(eng, got, tpch_want[q], f"fault: predicate transfer {q}")
+            faults[f"predicate_transfer_{q}"] = {
+                "rows_pruned": pruned.value - pruned0, "ms": s * 1e3}
+        if not faults["predicate_transfer_Q10"]["rows_pruned"]:
+            raise AssertionError("predicate transfer pruned no row of Q10")
+        del eng
+    # prime row counts: every pad-and-mask boundary uneven
+    primes = {"lineitem": 9973, "orders": 2503, "customer": 251,
+              "part": 331, "supplier": 13, "partsupp": 1327}
+    pdb = {t: {c: v[:primes.get(t, len(v))] for c, v in cols.items()}
+           for t, cols in tpch_db.items()}
+    pyard = SiriusEngine(use_kernels=False, compile_pipelines=False)
+    load_into_engine(pyard, pdb)
+    eng, _ = dist(pdb, DIST_FAULT_SHARDS, use_kernels=True)
+    for q in (1, 3, 6, 12, 18):
+        got, _ = timed(eng, tpch_plans[f"Q{q}"])
+        checked(eng, got, pyard.execute(QUERIES[q]()).to_host(),
+                f"fault: prime rows Q{q}")
+    faults["prime_rows"] = {t: len(next(iter(c.values())))
+                            for t, c in pdb.items()}
+    # shuffle overflow: undersized buckets double until they fit
+    rng = np.random.default_rng(7)
+    n = 20_000
+    sdb = {"t": {"k": rng.integers(0, 9973, n),
+                 "p": rng.integers(0, 1 << 30, n), "v": rng.normal(size=n)}}
+    plan = (lambda: SortRel(AggregateRel(ReadRel("t"), ["k"],
+                                         [AggSpec("sum", Col("v"), "s")]),
+                            [SortKey("k", True)]))
+    eng, _ = dist(sdb, 4, use_kernels=True, shuffle_slack=0.01,
+                  partition_keys={"t": "p"})
+    got, s = timed(eng, plan)
+    checked(eng, got, eager({"t": Table.from_pydict(sdb["t"])}).execute(
+        plan()).to_host(), "fault: shuffle overflow")
+    if not eng.shuffle_slack > 0.01:
+        raise AssertionError(f"overflow: slack {eng.shuffle_slack}")
+    faults["overflow"] = {"final_slack": eng.shuffle_slack, "ms": s * 1e3}
+    del eng
+    result["faults"] = faults
+    result["launches_by_sweep"]["faults"] = build.launch_counts()
+    emit({"phase": "distributed_faults", **faults})
+
+    torch.cuda.synchronize()
+    launches = {k: sum(c[k] for c in result["launches_by_sweep"].values())
+                for k in REPLACES}
+    result.update(launches=launches,
+                  seconds=time.perf_counter() - t_phase,
+                  peak_device_bytes=torch.cuda.max_memory_allocated(),
+                  shard_fallbacks=fallbacks.value - fallbacks0)
+    emit({"phase": "distributed", "card": card, "shards": DIST_SHARDS,
+          "fault_shards": DIST_FAULT_SHARDS, "seconds": result["seconds"],
+          "peak_device_bytes": result["peak_device_bytes"],
+          "load_s": result["load_s"], "launches": result["launches_by_sweep"],
+          "shard_fallbacks": result["shard_fallbacks"]})
+    return result
+
+
+# ---------------------------------------------------------------------------
 # phase 6: the LM serving path (llama3.2-3b at full width)
 # ---------------------------------------------------------------------------
 
@@ -2071,6 +2379,8 @@ def main() -> int:
         card, tables, tpch_db, cb_table, cb_db,
         report["compiled_path"].pop("sql_runs"))
     report["analyze"] = run_analyze(card, tables, tpch_db, cb_table, cb_db)
+    report["distributed"] = run_distributed(card, dev, tables, tpch_db,
+                                            cb_table, cb_db)
     del tables, tpch_db, cb_table, cb_db
     torch.cuda.empty_cache()
     report["lm_serve"] = run_lm_serve(card, dev)
@@ -2079,6 +2389,7 @@ def main() -> int:
                "clickbench": report["clickbench"]["launches"],
                "front_door": report["front_door"]["launches"],
                "analyze": report["analyze"]["launches"],
+               "distributed": report["distributed"]["launches"],
                "lm_serve": report["lm_serve"]["launches"]}
     line = []
     for row in kernels:

@@ -4,6 +4,6 @@ from .expressions import (  # noqa: F401
     Between, BinOp, Case, Cast, Col, DateLit, Expr, ExtractYear, InList, Like,
     Lit, StartsWith, Substr, UnOp, evaluate,
 )
-from .join import combine_keys, hash_join  # noqa: F401
-from .aggregate import AggSpec, group_aggregate  # noqa: F401
+from .join import StaticHashTable, combine_keys, hash_join  # noqa: F401
+from .aggregate import AggSpec, group_aggregate, static_group_aggregate  # noqa: F401
 from .sort import SortKey, sort_table  # noqa: F401

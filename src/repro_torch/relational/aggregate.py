@@ -343,3 +343,50 @@ def group_aggregate(
         out[name] = Column(_count_distinct(gids, vals, n_groups), NUMERIC)
     # preserve the requested output column order
     return Table({**uniq.columns, **{a.name: out[a.name] for a in aggs}})
+
+
+# ---------------------------------------------------------------------------
+# static-shape aggregate (fixed shapes, no host syncs)
+# ---------------------------------------------------------------------------
+
+
+def static_group_aggregate(
+    gids: torch.Tensor,
+    valid: torch.Tensor,
+    values: Dict[str, Tuple[str, torch.Tensor]],
+    num_groups: int,
+):
+    """Masked scatter aggregation with a static group count.
+
+    ``values`` maps output name -> (fn, data array).  Rows with valid=False
+    go to a dump group past the end and reach no output.  Returns dict of
+    (num_groups,) tensors plus ``__count`` (rows per group) and
+    ``__present`` (group non-empty).  Sums, counts and averages are
+    float32, as the reference's are (not the float64 of the generic tier);
+    min and max keep the data's dtype, and a group no row reaches holds
+    the reduction's identity.
+    """
+    gids = torch.where(valid, gids.long(), num_groups)
+    out = {}
+    counts = segment_sum(valid.to(torch.float32), gids, num_groups + 1)[:-1]
+    out["__count"] = counts
+    out["__present"] = counts > 0
+    for name, (fn, data) in values.items():
+        if fn in ("sum", "avg", "count"):
+            vals = (torch.ones_like(data, dtype=torch.float32) if fn == "count"
+                    else data.to(torch.float32))
+            s = segment_sum(vals, gids, num_groups + 1)[:-1]
+            out[name] = s / torch.clamp(counts, min=1) if fn == "avg" else s
+        elif fn in ("min", "max"):
+            if data.dtype.is_floating_point:
+                ident = float("inf") if fn == "min" else float("-inf")
+            else:
+                info = torch.iinfo(data.dtype)
+                ident = info.max if fn == "min" else info.min
+            acc = torch.full((num_groups + 1,), ident, dtype=data.dtype,
+                             device=data.device)
+            out[name] = acc.scatter_reduce_(
+                0, gids, data, "amin" if fn == "min" else "amax")[:-1]
+        else:
+            raise ValueError(fn)
+    return out

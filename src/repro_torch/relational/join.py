@@ -1,4 +1,4 @@
-"""Join operators — counterpart of the eager path of ``repro/relational/join.py``.
+"""Join operators — counterpart of ``repro/relational/join.py``.
 
 ``hash_join`` is sort-merge on factorized keys, exact for any
 multiplicity: match counting (stable argsort + two searchsorted), then the
@@ -6,10 +6,16 @@ run expansion into gather indices.  The dynamic output size is the single
 scalar pull between the two.  With a kernel backend attached the run
 expansion goes to the ``join_expand`` CUDA kernel.  Supports inner / left /
 semi / anti / mark.
+
+The static-shape tier: ``hash_join_bounded`` (the same join under a
+cardinality cap, with no host sync for single-column keys) and
+``StaticHashTable``, an atomics-free open-addressing table built by
+multi-round masked scatter and probed linearly (build keys unique).
 """
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+import dataclasses
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -199,3 +205,172 @@ def hash_join(
     if how == "left":
         out["__matched"] = Column(matched[:total], BOOL)
     return Table(out)
+
+
+def hash_join_bounded(
+    probe: Table,
+    build: Table,
+    probe_keys: Sequence[str],
+    build_keys: Sequence[str],
+    capacity: int,
+    how: str = "inner",
+) -> Tuple[Table, torch.Tensor, torch.Tensor]:
+    """Sync-free inner/left join under a conservative cardinality cap.
+
+    The stats-layer ``capacity`` (an upper bound on the join's output
+    cardinality) replaces the dynamic-size pull entirely: the output is
+    allocated at the padded cap, surviving rows are flagged by ``valid``,
+    and ``overflow`` is a device bool that is true iff the true match
+    count exceeded ``capacity`` (rows were dropped — the caller must fall
+    back to ``hash_join``).  With single-column keys nothing here waits
+    for the device; multi-column keys pull per-column min/max scalars to
+    pack them.
+
+    Returns ``(padded_table, valid_mask, overflow_flag)``; the padded table
+    has exactly ``bucket_size(capacity)`` rows.
+    """
+    if how not in ("inner", "left"):
+        raise ValueError(f"hash_join_bounded supports inner/left, got {how}")
+    cap = kops.bucket_size(max(int(capacity), 1))
+    if probe.num_rows == 0 or build.num_rows == 0:
+        joined = hash_join(probe, build, probe_keys, build_keys, how)
+        device = joined.device
+        if joined.num_rows == 0:
+            out = {n: Column(torch.zeros(cap, dtype=c.data.dtype,
+                                         device=c.data.device),
+                             c.kind, c.dictionary)
+                   for n, c in joined.columns.items()}
+        else:
+            pad = torch.clamp(torch.arange(cap, device=device),
+                              max=joined.num_rows - 1)
+            out = {n: c.take(pad) for n, c in joined.columns.items()}
+        valid = torch.arange(cap, device=device) < joined.num_rows
+        return (Table(out), valid,
+                torch.tensor(joined.num_rows > cap, device=device))
+
+    pk, bk = combine_keys([probe[k] for k in probe_keys],
+                          [build[k] for k in build_keys])
+    order, lo, counts = join_match(pk, bk)
+    counts_out = torch.clamp(counts, min=1) if how == "left" else counts
+    total = counts_out.sum()
+    overflow = total > cap
+    probe_idx, build_idx, matched = join_expand_ref(order, lo, counts,
+                                                    counts_out, cap)
+    # rows past the true total are filler: mask them out
+    valid = torch.arange(cap, device=pk.device) < total
+    out = {}
+    for name, col in probe.columns.items():
+        out[name] = col.take(probe_idx)
+    for name, col in build.columns.items():
+        if name in out:
+            continue
+        out[name] = col.take(build_idx)
+    if how == "left":
+        out["__matched"] = Column(matched, BOOL)
+    return Table(out), valid, overflow
+
+
+# ---------------------------------------------------------------------------
+# static-shape open-addressing hash table (fixed shapes, no host syncs)
+# ---------------------------------------------------------------------------
+
+_MIX = -7046029254386353131  # 0x9E3779B97F4A7C15 as signed int64
+EMPTY = -1
+
+
+def _hash(keys: torch.Tensor, mask: int) -> torch.Tensor:
+    """Slot of each key: an int64 multiply that wraps, an arithmetic
+    ``>> 29``, ``& mask`` — bit for bit the reference's."""
+    h = keys.to(torch.int64) * _MIX
+    h = h ^ (h >> 29)
+    return (h & mask).to(torch.int32)
+
+
+def next_pow2(n: int) -> int:
+    return 1 << max(int(n - 1).bit_length(), 4)
+
+
+@dataclasses.dataclass
+class StaticHashTable:
+    """Open-addressing table over unique int keys; fully static shapes.
+
+    slots_key[i]  = key stored in slot i (or -1)
+    slots_row[i]  = build-side row index for that key (or -1)
+    Built with deterministic multi-round masked scatter: every unplaced
+    key scatters its row id into its current candidate slot with a
+    scatter-max; winners are the rows that read their own id back.
+    """
+
+    slots_key: torch.Tensor
+    slots_row: torch.Tensor
+    capacity: int
+    max_probes: int
+    all_placed: Optional[torch.Tensor] = None  # bool scalar; debug/assert aid
+
+    @staticmethod
+    def build(keys: torch.Tensor, valid: Optional[torch.Tensor] = None,
+              capacity: Optional[int] = None,
+              max_probes: int = 32) -> "StaticHashTable":
+        n = keys.shape[0]
+        device = keys.device
+        cap = capacity or next_pow2(2 * n)
+        mask = cap - 1
+        keys = keys.to(torch.int64)
+        rows = torch.arange(n, dtype=torch.int32, device=device)
+        if valid is None:
+            valid = torch.ones(n, dtype=torch.bool, device=device)
+
+        slots_row = torch.full((cap,), -1, dtype=torch.int32, device=device)
+        placed = ~valid  # invalid rows are "already placed" (i.e. skipped)
+        h0 = _hash(keys, mask)
+        for i in range(max_probes):
+            cand = ((h0 + i) & mask).long()
+            # Contenders scatter-max their row id into a scratch table; the
+            # scratch is merged only into slots that are still empty, so
+            # earlier winners are never displaced.
+            attempt = torch.where(placed, -1, rows)
+            bids = torch.full((cap,), -1, dtype=torch.int32, device=device)
+            bids.scatter_reduce_(0, cand, attempt, "amax")
+            empty = slots_row == -1
+            slots_row = torch.where(empty & (bids >= 0), bids, slots_row)
+            won = (~placed) & (slots_row[cand] == rows)
+            placed = placed | won
+        if n:
+            slots_key = torch.where(
+                slots_row >= 0, keys[torch.clamp(slots_row, 0, n - 1).long()],
+                -1)
+        else:
+            slots_key = torch.full((cap,), -1, dtype=torch.int64,
+                                   device=device)
+        return StaticHashTable(slots_key, slots_row, cap, max_probes,
+                               torch.all(placed))
+
+    def lookup(self, probe_keys: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """→ (build_row_idx int32 [-1 if none], found bool). Fully vectorized."""
+        mask = self.capacity - 1
+        keys = probe_keys.to(torch.int64)
+        h0 = _hash(keys, mask)
+        found_row = torch.full(keys.shape, -1, dtype=torch.int32,
+                               device=keys.device)
+        done = torch.zeros(keys.shape, dtype=torch.bool, device=keys.device)
+        for i in range(self.max_probes):
+            cand = ((h0 + i) & mask).long()
+            k = self.slots_key[cand]
+            r = self.slots_row[cand]
+            hit = (~done) & (k == keys) & (r >= 0)
+            miss_empty = (~done) & (r == -1)  # empty slot ⇒ key absent
+            found_row = torch.where(hit, r, found_row)
+            done = done | hit | miss_empty
+        return found_row, found_row >= 0
+
+
+def static_join_gather(probe_data: dict, build_data: dict,
+                       row_idx: torch.Tensor, found: torch.Tensor):
+    """Gather build columns alongside probe columns under a match mask."""
+    safe = torch.clamp(row_idx, min=0).long()
+    out = dict(probe_data)
+    for name, arr in build_data.items():
+        if name not in out:
+            out[name] = arr[safe]
+    return out, found

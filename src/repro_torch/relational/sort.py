@@ -3,6 +3,8 @@
 A device lexsort on the encoded sort keys (order-preserving dictionary
 codes make string sorts integer sorts).  torch has no ``lexsort``, so it is
 built from successive stable sorts, least significant key first.
+
+Static path: ``static_topk`` — mask-aware top-k on a single packed key.
 """
 from __future__ import annotations
 
@@ -50,3 +52,20 @@ def sort_table(table: Table, keys: Sequence[SortKey], limit: int | None = None) 
     if limit is not None:
         order = order[:limit]
     return table.take(order)
+
+
+def static_topk(packed_key: torch.Tensor, valid: torch.Tensor, k: int):
+    """Top-k smallest packed keys among valid rows → (indices, valid_out).
+
+    The reference ranks ``-key`` with ``jax.lax.top_k`` (float keys cast
+    to float32 first), which puts the lower index first among equal keys;
+    a stable ascending sort of the same values gives that order, which
+    ``torch.topk`` does not promise."""
+    if packed_key.dtype.is_floating_point:
+        masked = torch.where(valid, packed_key,
+                             float("inf")).to(torch.float32)
+    else:
+        big = torch.iinfo(packed_key.dtype).max
+        masked = torch.where(valid, packed_key, big)
+    idx = torch.sort(masked, stable=True).indices[:k]
+    return idx, valid[idx]

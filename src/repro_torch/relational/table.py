@@ -72,6 +72,11 @@ class Column:
         if arr.dtype.kind != "U":
             arr = arr.astype(object).astype(str)
         dictionary, codes = np.unique(arr, return_inverse=True)
+        # the reference goes through ``astype(object).astype(str)``, whose
+        # width is the longest value's: narrow the dictionary to it, so
+        # decoded columns have the reference's dtype (and byte counts)
+        width = int(np.char.str_len(dictionary).max()) if len(dictionary) else 0
+        dictionary = dictionary.astype(f"<U{max(width, 1)}")
         return Column(torch.from_numpy(codes.astype(np.int32)), STRING,
                       dictionary)
 

@@ -920,3 +920,96 @@ def test_chrome_trace_of_an_engine_query_on_card(tpch_small):
             if e["ph"] == "M"] == ["coordinator"]
     replay = next(e for e in spans if e["name"] == "plan_cache.replay")
     assert replay["args"]["mode"] == "graph"
+
+
+# ---------------------------------------------------------------------------
+# distributed execution and the static tier on the card
+# ---------------------------------------------------------------------------
+
+
+def test_partition_hash_on_card_equals_the_host_hash(dev):
+    from repro_torch.core.distributed import np_partition_hash
+    from repro_torch.exchange.service import partition_hash
+    rng = np.random.default_rng(20)
+    keys = np.concatenate([
+        np.array([0, 1, -5, 2**40, -(2**40), np.iinfo(np.int64).max,
+                  np.iinfo(np.int64).min], np.int64),
+        rng.integers(np.iinfo(np.int64).min, np.iinfo(np.int64).max, 100_000,
+                     dtype=np.int64)])
+    for n in (2, 3, 7, 8, 16):
+        got = partition_hash(torch.from_numpy(keys).to(dev), n)
+        np.testing.assert_array_equal(got.cpu().numpy(),
+                                      np_partition_hash(keys, n))
+
+
+@pytest.mark.parametrize("out_cap", [4096, 64])
+def test_shuffle_on_card_equals_the_cpu_shuffle(dev, out_cap):
+    from repro_torch.exchange.service import Frame, ShardMesh, shuffle
+    rng = np.random.default_rng(out_cap)
+    n, cap = 8, 2048
+    cols = {"k": rng.integers(-(2**40), 2**40, (n, cap)),
+            "v": rng.normal(size=(n, cap)),
+            "m": rng.integers(0, 99, (n, cap, 3)).astype(np.int32)}
+    valid = rng.random((n, cap)) < 0.8
+    outs = []
+    for d in (torch.device("cpu"), dev):
+        fr = Frame({k: torch.from_numpy(v).to(d) for k, v in cols.items()},
+                   torch.from_numpy(valid).to(d))
+        got, ov = shuffle(fr, fr.columns["k"], ShardMesh.of(n, d), out_cap)
+        outs.append(({k: v.cpu() for k, v in got.columns.items()},
+                     got.valid.cpu(), ov.cpu()))
+    (c_cols, c_valid, c_ov), (g_cols, g_valid, g_ov) = outs
+    assert torch.equal(c_valid, g_valid) and torch.equal(c_ov, g_ov)
+    for k in cols:
+        assert torch.equal(c_cols[k], g_cols[k]), k
+    assert (int(g_ov[0]) > 0) == (out_cap == 64)
+
+
+def test_hash_join_bounded_is_sync_free_on_card(dev):
+    """Single-column keys: no host sync (torch's sync debug mode raises on
+    one), the reference's zero-sync contract."""
+    from repro_torch.relational.join import hash_join, hash_join_bounded
+    from repro_torch.relational.table import Column, Table
+    rng = np.random.default_rng(3)
+
+    def table(**cols):
+        return Table({k: Column(torch.from_numpy(v).to(dev))
+                      for k, v in cols.items()})
+    probe = table(k=rng.integers(0, 80, 5000),
+                  pv=rng.normal(size=5000).astype(np.float32))
+    build = table(k=rng.integers(0, 80, 2000), bv=rng.integers(0, 1000, 2000))
+    for how in ("inner", "left"):
+        torch.cuda.synchronize(dev)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out, valid, overflow = hash_join_bounded(
+                probe, build, ["k"], ["k"], capacity=1 << 18, how=how)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        exact = hash_join(probe, build, ["k"], ["k"], how=how)
+        assert not bool(overflow) and int(valid.sum()) == exact.num_rows
+        for name in exact.column_names:
+            got = out[name].data[valid]
+            assert torch.equal(got, exact[name].data), (how, name)
+
+
+def test_distributed_q3_with_kernels_equals_the_eager_engine_on_card(
+        tpch_small):
+    from repro_torch.core.distributed import DistributedEngine
+    from repro_torch.data.tpch_queries import QUERIES
+    eng = DistributedEngine(tpch_small, n_shards=4, use_kernels=True)
+    assert eng.device.type == "cuda"
+    before = build.launch_counts()
+    got = eng.run_plan(QUERIES[3]())
+    launched = {k: n - before[k] for k, n in build.launch_counts().items()}
+    want = _loaded(tpch_small, compile_pipelines=False).execute(
+        QUERIES[3]()).to_host()
+    assert set(got) == set(want)
+    for k in want:
+        if want[k].dtype.kind == "f":
+            np.testing.assert_allclose(got[k], want[k], rtol=2e-5, atol=1e-6)
+        else:
+            assert (np.asarray(got[k]) == np.asarray(want[k])).all(), k
+    assert launched["hash_probe"] + launched["groupby_sum"] > 0
+    assert all(t["master"].device.type == "cuda"
+               for t in eng.tables.values())

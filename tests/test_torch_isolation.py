@@ -34,7 +34,11 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
         "repro_torch.substrait.wire, repro_torch.substrait.router, "
         "repro_torch.core.fallback, repro_torch.observability, "
         "repro_torch.observability.profile, repro_torch.observability.journal, "
-        "repro_torch.observability.tracer, repro_torch.observability.dist\n"
+        "repro_torch.observability.tracer, repro_torch.observability.dist, "
+        "repro_torch.runtime.checkpoint, repro_torch.runtime.control, "
+        "repro_torch.optimizer.exchange, repro_torch.exchange.service, "
+        "repro_torch.exchange.bloom, repro_torch.core.distributed, "
+        "repro_torch.core.static_ops\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
         "print(','.join(bad))\n")

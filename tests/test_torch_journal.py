@@ -17,8 +17,8 @@ reference's.
   cost stays within 5% (+2 ms) of off, read on interleaved medians.
 * ``scripts/profile_diff.py``'s gates fed from the port's runs.
 
-The reference's distributed-journal case waits for the port's
-distributed tier (ROADMAP queue 1, item 8).
+The reference's distributed-journal case runs on the port's distributed
+engine in ``tests/test_torch_distributed.py``.
 """
 import importlib.util
 import json

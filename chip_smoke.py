@@ -134,6 +134,25 @@ nothing of JAX or of the JAX package ``repro``, and:
    retries with doubled buckets.  It prints one line per query (fragments,
    exchanges with their bytes per shard, skew and rows, the timers, cold
    and warm ms) and the phase's seconds and peak device memory;
+5e. drives the SQL half of ``launch/``: the dry run of the ten SQL cells
+   (``q1``, ``q3``, ``q3pt``, ``q3c``, ``q3ptc`` at SF100 on 256 and 2 x
+   256 shards) under fake CUDA tensors, one line a cell (caps, shuffle
+   caps, per-shard argument / output / peak bytes, bytes accessed,
+   collective bytes by kind, ``fits_card``); then the same fragments run
+   for real with SF100 / 256's per-shard caps on ``n`` logical shards of
+   the card, ``n`` the largest power of two in 8..256 whose predicted
+   ``n x`` per-shard peak stays under ``LAUNCH_MEM_SHARE`` of its memory
+   (SF = 100 n / 256; two pods of n / 2 for the multi-pod mesh), on data
+   made on the card from ``LAUNCH_SEED`` in dbgen's domains.  Each run is
+   held against the plain global answer (``launch/sql_data.py``): Q1's
+   9 x 6 sums within ``LAUNCH_Q1_RTOL``; Q3's overflow equal to the plain
+   count of rows past their buckets, exactly, 0 for ``q1``, ``q3`` and
+   ``q3c``; where it is 0, each shard's top-10 to the plain answer for the
+   keys hashed to it (revenue within ``LAUNCH_Q3_RTOL``).  It prints per
+   run the cold and the warm (median of 3) ms, the measured peak against
+   the predicted ``n x`` per-shard peak, the bytes accessed over 3.35 TB/s
+   against the warm ms, and for the ``pt`` variants the overflow and the
+   Bloom filter's pass fraction;
 6. drives the LM serving path: ``serve_lm``'s workload (``llama3.2-3b``
    at full width, 28 layers, random bf16 weights from its seed) on the
    card.  For models and tokens from three seeds, teacher-forced
@@ -286,6 +305,18 @@ DIST_FAULT_SHARDS = 8
 DIST_RTOL = 2e-5
 STRAGGLE_S = 2.0
 DIST_TIMERS = ("compute", "exchange", "compile", "other", "total")
+# phase 5e: the seed of the fragments' data, the share of the card's memory
+# the real runs may fill (by the dry run's prediction), and the shard
+# counts tried; Q1's float32 sums take at most five float32 roundings a
+# term (1 - discount, the discounted price, 1 + tax, the charge, and the
+# sum itself, which the card adds in fixed point), Q3's line revenues at
+# most three (1 - discount, the product, and the code's * 0.01), summed in
+# float64
+LAUNCH_SEED = 19920101
+LAUNCH_MEM_SHARE = 0.6
+LAUNCH_SHARDS = (256, 128, 64, 32, 16, 8)
+LAUNCH_Q1_RTOL = 6 * 2.0 ** -24
+LAUNCH_Q3_RTOL = 4 * 2.0 ** -24
 # phase 5c: the warm replays a query runs with the journal on and with it
 # off, and the calls of a warm run's journal spans timed alone
 JOURNAL_REPEATS = 31
@@ -2204,6 +2235,115 @@ def run_distributed(card: str, dev, tpch_tables: dict, tpch_db: dict,
 
 
 # ---------------------------------------------------------------------------
+# phase 5e: the SQL half of launch/ (dry run, then the fragments on shards)
+# ---------------------------------------------------------------------------
+
+
+def _launch_mesh(n: int, multi_pod: bool, dev):
+    from repro_torch.exchange.service import ShardMesh
+    if multi_pod:
+        return ShardMesh((("pod", 2), ("data", n // 2)), dev)
+    return ShardMesh((("data", n),), dev)
+
+
+def _dry_line(rec: dict) -> dict:
+    mem = rec["memory"]
+    return {k: rec.get(k) for k in ("shape", "mesh", "status", "n_shards",
+                                    "caps", "cap", "shuffle_out_caps")} | {
+        "argument_bytes": mem["argument_bytes"],
+        "output_bytes": mem["output_bytes"],
+        "peak_bytes": mem["resident_bytes_per_chip"],
+        "bytes_accessed": rec["bytes_accessed_per_device"],
+        "collective_bytes": rec["collective_bytes_per_device"],
+        "fits_card": mem["fits_card"]}
+
+
+def run_launch(card: str, dev) -> dict:
+    """The dry run of the ten SQL cells, then each fragment run for real on
+    logical shards of the card and held against the plain answer."""
+    import torch
+    from repro_torch.kernels import build
+    from repro_torch.launch import dryrun, sql_data, sql_dryrun
+
+    t_phase = time.perf_counter()
+    build.reset_launch_counts()
+    budget = LAUNCH_MEM_SHARE * torch.cuda.get_device_properties(0).total_memory
+    dry = {}
+    for shape in sql_dryrun.SHAPES:
+        for mp in (False, True):
+            rec = dryrun.run_cell(dryrun.SQL_ARCH, f"{shape}_sf100", mp)
+            if rec["status"] != "ok":
+                raise AssertionError(f"dry run {shape} {mp}: {rec['error']}")
+            dry[(shape, mp)] = rec
+            emit({"phase": "launch_dry", "card": card, **_dry_line(rec)})
+
+    runs = []
+    for (shape, mp), rec in dry.items():
+        # the largest n whose prediction fits (per-shard caps of SF100/256)
+        per_shard = dry[(shape, False)]["memory"]["resident_bytes_per_chip"]
+        n = next((n for n in LAUNCH_SHARDS if n * per_shard <= budget), 8)
+        while True:
+            sf = sql_dryrun.SF * n / 256
+            fn, specs, extra = sql_dryrun.lower_sql_fragment(
+                shape, mp, sf=sf, mesh=_launch_mesh(n, mp, dev))
+            pred = dryrun.analyze(fn, specs, _launch_mesh(n, mp, dev))
+            predicted = n * pred["memory"]["resident_bytes_per_chip"]
+            if predicted <= budget or n == 8:
+                break
+            n //= 2
+        mesh = _launch_mesh(n, mp, dev)
+        torch.cuda.empty_cache()
+        if shape == "q1":
+            data = sql_data.q1_data(extra, sf, LAUNCH_SEED, device=dev)
+        else:
+            data = sql_data.q3_data(extra, sf, LAUNCH_SEED,
+                                    compress="c" in shape, device=dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for _ in range(1 + WARM_RUNS):
+            t = time.perf_counter()
+            got = fn(mesh, *data)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+        peak = torch.cuda.max_memory_allocated()
+        warm = statistics.median(times[1:])
+        bound_ms = n * pred["bytes_accessed_per_device"] / HBM_BYTES_PER_S * 1e3
+        row = {"shape": shape, "mesh": "x".join(map(str, mesh.shape)),
+               "n_shards": n, "sf": sf, "cold_ms": times[0], "warm_ms": warm,
+               "peak_bytes": peak, "predicted_peak_bytes": predicted,
+               "peak_over_predicted": peak / predicted,
+               "bytes_accessed": n * pred["bytes_accessed_per_device"],
+               "bound_ms": bound_ms, "bound_share": bound_ms / warm}
+        if shape == "q1":
+            row["max_rel_err"] = sql_data.hold_q1(
+                got, sql_data.plain_q1(*data), LAUNCH_Q1_RTOL)
+        else:
+            plain = sql_data.plain_q3(data, extra, 2 if mp else 1,
+                                      "pt" in shape)
+            row.update(overflow=int(got[-1]), plain_overflow=plain["overflow"],
+                       bloom_pass=plain["bloom_pass"])
+            if int(got[-1]) != plain["overflow"]:
+                raise AssertionError(f"{shape} {row['mesh']}: overflow "
+                                     f"{int(got[-1])}, plain {plain['overflow']}")
+            if "pt" not in shape and plain["overflow"]:
+                raise AssertionError(f"{shape} {row['mesh']}: rows overflow")
+            if not plain["overflow"]:
+                row["max_rel_err"] = sql_data.hold_q3(got, plain, n,
+                                                      LAUNCH_Q3_RTOL)
+        del got, data
+        runs.append(row)
+        emit({"phase": "launch_run", "card": card, **row})
+    counts = build.launch_counts()
+    result = {"dry": [_dry_line(r) for r in dry.values()], "runs": runs,
+              "launches": {k: counts.get(k, 0) for k in REPLACES},
+              "seconds": time.perf_counter() - t_phase}
+    emit({"phase": "launch", "card": card, "seconds": result["seconds"],
+          "launches": result["launches"]})
+    return result
+
+
+# ---------------------------------------------------------------------------
 # phase 6: the LM serving path (llama3.2-3b at full width)
 # ---------------------------------------------------------------------------
 
@@ -2383,6 +2523,8 @@ def main() -> int:
                                             cb_table, cb_db)
     del tables, tpch_db, cb_table, cb_db
     torch.cuda.empty_cache()
+    report["launch"] = run_launch(card, dev)
+    torch.cuda.empty_cache()
     report["lm_serve"] = run_lm_serve(card, dev)
     by_path = {"tpch": report["main_path"]["launches"],
                "tpch_compiled": report["compiled_path"]["launches"],
@@ -2390,6 +2532,7 @@ def main() -> int:
                "front_door": report["front_door"]["launches"],
                "analyze": report["analyze"]["launches"],
                "distributed": report["distributed"]["launches"],
+               "sql_fragments": report["launch"]["launches"],
                "lm_serve": report["lm_serve"]["launches"]}
     line = []
     for row in kernels:

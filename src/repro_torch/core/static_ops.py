@@ -4,15 +4,21 @@ counterpart of ``repro/core/static_ops.py``.
 Every shape is fixed: row counts are carried by validity masks, joins
 probe fixed-capacity hash tables, and aggregation is sort-based within the
 shard (argsort + segment boundaries + segment sums, all dense tensor ops;
-nothing waits for the device).  The frames are one shard's.
+nothing waits for the device).
+
+A frame is one shard's (``valid`` of shape ``(cap,)``, as in the
+reference's ``shard_map`` body) or a sharded one (``(n_shards, cap)``, as
+on a ``ShardMesh``): each operator then works on every shard side by side,
+shard ``s`` getting what the one-shard call on its rows gives.
 """
 from __future__ import annotations
 
+import math
 from typing import Dict, Sequence, Tuple
 
 import torch
 
-from ..exchange.service import Frame
+from ..exchange.service import Frame, take_rows
 from ..relational.aggregate import segment_sum
 from ..relational.join import StaticHashTable
 
@@ -25,6 +31,21 @@ def pack_keys(cols: Sequence[torch.Tensor], cards: Sequence[int]) -> torch.Tenso
     for c, card in zip(cols[1:], cards[1:]):
         out = out * card + c.to(torch.int64)
     return out
+
+
+def shard_segment_sum(data: torch.Tensor, gid: torch.Tensor,
+                      n: int) -> torch.Tensor:
+    """Per-shard segment sums: ``gid`` is ``(..., rows)`` in ``[0, n)``,
+    ``data`` ``(..., rows)`` or ``(..., rows, cols)`` → ``(..., n)`` or
+    ``(..., n, cols)``, each shard's own segments (one ``segment_sum`` over
+    every shard's rows, ``n`` ids a shard)."""
+    lead = tuple(gid.shape[:-1])
+    shards = math.prod(lead)
+    base = torch.arange(shards, device=gid.device).reshape(lead + (1,))
+    flat = (gid + base * n).reshape(-1)
+    rest = tuple(data.shape[gid.dim():])
+    out = segment_sum(data.reshape((-1,) + rest), flat, shards * n)
+    return out.reshape(lead + (n,) + rest)
 
 
 def local_sort_agg(frame: Frame, key: torch.Tensor,
@@ -40,32 +61,37 @@ def local_sort_agg(frame: Frame, key: torch.Tensor,
     unique keys), plus the sorted key array (for debugging).
     """
     cap = frame.capacity
+    lead = tuple(frame.valid.shape[:-1])
     dev = frame.valid.device
     skey = torch.where(frame.valid, key.to(torch.int64), I64_MAX)
-    order = torch.sort(skey, stable=True).indices
-    k_sorted = skey[order]
-    v_sorted = frame.valid[order]
+    order = torch.sort(skey, dim=-1, stable=True).indices
+    k_sorted = torch.gather(skey, -1, order)
+    v_sorted = torch.gather(frame.valid, -1, order)
 
-    is_start = torch.cat([torch.ones(1, dtype=torch.bool, device=dev),
-                          k_sorted[1:] != k_sorted[:-1]]) & v_sorted
-    gid = torch.cumsum(is_start, 0) - 1                # segment id per row
+    is_start = torch.cat([torch.ones(lead + (1,), dtype=torch.bool, device=dev),
+                          k_sorted[..., 1:] != k_sorted[..., :-1]], -1) & v_sorted
+    gid = torch.cumsum(is_start, -1) - 1               # segment id per row
     gid = torch.where(v_sorted, gid, cap)              # invalid rows dumped
+    base = torch.arange(math.prod(lead), device=dev).reshape(lead + (1,))
+    flat = (gid + base * (cap + 1)).reshape(-1)        # each shard's slots
 
     out_cols: Dict[str, torch.Tensor] = {}
-    ones = v_sorted.to(torch.float64)
-    out_cols["__count"] = segment_sum(ones, gid, cap + 1)[:-1]
+    out_cols["__count"] = shard_segment_sum(
+        v_sorted.to(torch.float64), gid, cap + 1)[..., :-1]
     for name, vals in sums.items():
-        vs = torch.where(v_sorted, vals[order].to(torch.float64), 0.0)
-        out_cols[name] = segment_sum(vs, gid, cap + 1)[:-1]
-    out_key = torch.full((cap + 1,), I64_MAX, dtype=torch.int64, device=dev)
-    out_key[gid] = k_sorted
-    out_cols["key"] = out_key[:-1]
+        vs = torch.where(v_sorted, torch.gather(vals, -1, order)
+                         .to(torch.float64), 0.0)
+        out_cols[name] = shard_segment_sum(vs, gid, cap + 1)[..., :-1]
+    out_key = torch.full(lead + (cap + 1,), I64_MAX, dtype=torch.int64,
+                         device=dev)
+    out_key.view(-1)[flat] = k_sorted.reshape(-1)
+    out_cols["key"] = out_key[..., :-1]
     if firsts:
         for name, vals in firsts.items():
-            vs = vals[order]
-            buf = torch.zeros(cap + 1, dtype=vs.dtype, device=dev)
-            buf[gid] = vs
-            out_cols[name] = buf[:-1]
+            vs = torch.gather(vals, -1, order)
+            buf = torch.zeros(lead + (cap + 1,), dtype=vs.dtype, device=dev)
+            buf.view(-1)[flat] = vs.reshape(-1)
+            out_cols[name] = buf[..., :-1]
     out_valid = out_cols["key"] != I64_MAX
     return Frame(out_cols, out_valid), k_sorted
 
@@ -90,7 +116,7 @@ def static_inner_join(probe: Frame, probe_key: torch.Tensor, build: Frame,
     cols = dict(probe.columns)
     for name, col in build.columns.items():
         if name not in cols:
-            cols[name] = col[safe_row]
+            cols[name] = take_rows(col, safe_row)
     return Frame(cols, probe.valid & found)
 
 
@@ -102,5 +128,6 @@ def static_topk(frame: Frame, score: torch.Tensor, k: int,
     s = score.to(torch.float64)
     neg_inf = torch.finfo(torch.float64).min
     masked = torch.where(frame.valid, s if descending else -s, neg_inf)
-    idx = torch.sort(masked, descending=True, stable=True).indices[:k]
-    return frame.take(idx, frame.valid[idx])
+    idx = torch.sort(masked, dim=-1, descending=True,
+                     stable=True).indices[..., :k]
+    return frame.take(idx, torch.gather(frame.valid, -1, idx))

@@ -63,8 +63,19 @@ class Frame:
         return Frame(out, self.valid)
 
     def take(self, idx: torch.Tensor, taken_valid: torch.Tensor) -> "Frame":
-        """Gather rows of a one-shard frame."""
-        return Frame({n: c[idx] for n, c in self.columns.items()}, taken_valid)
+        """Gather rows: ``idx`` is ``(k,)`` for one shard's frame, ``(n_shards,
+        k)`` for a sharded one (each shard's own rows)."""
+        return Frame({n: take_rows(c, idx) for n, c in self.columns.items()},
+                     taken_valid)
+
+
+def take_rows(col: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Rows ``idx`` of ``col`` along the row axis, the last of ``idx``'s
+    dimensions; ``col`` may carry trailing dimensions of its own."""
+    rest = tuple(col.shape[idx.dim():])
+    ix = idx.reshape(tuple(idx.shape) + (1,) * len(rest)).expand(
+        tuple(idx.shape) + rest)
+    return torch.gather(col, idx.dim() - 1, ix)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -172,14 +183,20 @@ def shuffle_hierarchical(frame: Frame, key_name: str, mesh: ShardMesh,
     """Pod-aware two-stage shuffle: rows first cross the pod axis bucketed
     by destination pod, then fan out within the pod.  ``key_name`` must be
     a frame column so the second stage can re-derive destinations after
-    the first exchange."""
+    the first exchange.
+
+    The overflow count is the whole mesh's, on every shard: both stages'
+    rows past their buckets, summed with one ``psum`` over each axis.  The
+    reference sums each stage only along its own axis, so a shard misses
+    the rows dropped outside its own pod and data groups (ROADMAP queue 3);
+    both take two all-reduces of one count."""
     p = mesh.axis_size(pod_axis)
     d = mesh.axis_size(data_axis)
     g = partition_hash(frame.columns[key_name], p * d)
-    fr, ov1 = shuffle_by_dest(frame, g // d, mesh, out_cap_pod, pod_axis)
+    fr, ov1 = _exchange_by_dest(frame, g // d, mesh, out_cap_pod, pod_axis)
     g2 = partition_hash(fr.columns[key_name], p * d) % d
-    fr2, ov2 = shuffle_by_dest(fr, g2, mesh, out_cap_data, data_axis)
-    return fr2, ov1 + ov2
+    fr2, ov2 = _exchange_by_dest(fr, g2, mesh, out_cap_data, data_axis)
+    return fr2, mesh.psum(mesh.psum(ov1 + ov2, pod_axis), data_axis)
 
 
 def shuffle_by_dest(frame: Frame, dest: torch.Tensor, mesh: ShardMesh,
@@ -194,6 +211,14 @@ def shuffle_by_dest(frame: Frame, dest: torch.Tensor, mesh: ShardMesh,
     ``psum`` over ``axis``).  Invalid rows must carry dest >= n.  A row
     past its bucket goes to a dump slot past the end (the reference's
     ``mode="drop"``), never to an out-of-range index."""
+    fr, overflow = _exchange_by_dest(frame, dest, mesh, out_cap, axis)
+    return fr, mesh.psum(overflow, axis)
+
+
+def _exchange_by_dest(frame: Frame, dest: torch.Tensor, mesh: ShardMesh,
+                      out_cap: int, axis: str) -> Tuple[Frame, torch.Tensor]:
+    """``shuffle_by_dest`` with each shard's own overflow count, not yet
+    summed."""
     n = mesh.axis_size(axis)
     shards, cap = frame.valid.shape
     dev = frame.valid.device
@@ -230,7 +255,7 @@ def shuffle_by_dest(frame: Frame, dest: torch.Tensor, mesh: ShardMesh,
     recv_valid = exchange(sent_valid[:, :-1].reshape(shards, n, out_cap))
     recv_cols = {name: exchange(scatter(col))
                  for name, col in frame.columns.items()}
-    return Frame(recv_cols, recv_valid), mesh.psum(overflow, axis)
+    return Frame(recv_cols, recv_valid), overflow
 
 
 def broadcast(frame: Frame, mesh: ShardMesh, axis: str = "data") -> Frame:

@@ -86,11 +86,15 @@ def sorted_segments(ids: torch.Tensor, n: int):
 
 def _int_segment_sum(v: torch.Tensor, segments) -> torch.Tensor:
     """Exact per-segment sums of int64 ``v`` by a prefix sum over the rows
-    in segment order (integer addition gives one answer in any order)."""
+    in segment order (integer addition gives one answer in any order).
+    Columns ``(rows, cols)`` are scanned as ``(cols, rows)`` rows: a scan
+    along the leading axis of a narrow matrix runs one thread a column on
+    the card (92 s for Q1's six columns of 75 M rows)."""
     order, starts, ends = segments
-    c = torch.cumsum(v[order], 0)
-    c = torch.cat([torch.zeros(1, dtype=c.dtype, device=c.device), c])
-    return c[ends] - c[starts]
+    c = torch.cumsum(v.movedim(0, -1)[..., order], -1)
+    c = torch.cat([torch.zeros(tuple(c.shape[:-1]) + (1,), dtype=c.dtype,
+                               device=c.device), c], -1)
+    return (c[..., ends] - c[..., starts]).movedim(-1, 0)
 
 
 def _pow2(e: torch.Tensor) -> torch.Tensor:
@@ -100,12 +104,13 @@ def _pow2(e: torch.Tensor) -> torch.Tensor:
 
 def fixed_point_segment_sum(data: torch.Tensor, ids: torch.Tensor, n: int,
                             segments=None) -> torch.Tensor:
-    """Per-segment float sums (1-d ``data``) that do not depend on the order
-    of addition.
+    """Per-segment float sums that do not depend on the order of addition.
+    ``data`` is ``(rows,)`` or ``(rows, ...)``: trailing dimensions are
+    columns summed side by side, each scaled by its own largest magnitude.
 
     Each finite value is scaled by a power of two (chosen on the device
-    from the largest magnitude and the row count, so that no sum can
-    overflow) and split into an integer part and a fraction carried to
+    from its column's largest magnitude and the row count, so that no sum
+    can overflow) and split into an integer part and a fraction carried to
     62 - log2(rows) more bits; both are summed exactly as int64 and
     recombined in float64.  An integer-valued column sums exactly;
     otherwise the per-row error is far below float64's own.  NaNs and
@@ -114,14 +119,15 @@ def fixed_point_segment_sum(data: torch.Tensor, ids: torch.Tensor, n: int,
     device = data.device
     rows = data.shape[0]
     if rows == 0:
-        return torch.zeros(n, dtype=data.dtype, device=device)
+        return torch.zeros((n,) + tuple(data.shape[1:]), dtype=data.dtype,
+                           device=device)
     if segments is None:
         segments = sorted_segments(ids, n)
     x = data.to(torch.float64)
     finite = torch.isfinite(x)
     xf = torch.where(finite, x, 0.0)
     k = 62 - max(int(rows).bit_length(), 1)   # |scaled| < 2^k, rows < 2^(62-k)
-    top = torch.frexp(xf.abs().max()).exponent   # max |x| < 2^top
+    top = torch.frexp(xf.abs().amax(0)).exponent   # max |x| < 2^top
     shift = torch.clamp(k - top, -1000, 1000)
     q = xf * _pow2(shift)
     whole = torch.floor(q)

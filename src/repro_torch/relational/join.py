@@ -299,7 +299,11 @@ class StaticHashTable:
     Built with deterministic multi-round masked scatter: every unplaced
     key scatters its row id into its current candidate slot with a
     scatter-max; winners are the rows that read their own id back.
-    """
+
+    Keys ``(n,)`` build one table; keys ``(shards, n)`` build one table a
+    shard, side by side (slots ``(shards, capacity)``), each equal to the
+    table its shard's keys build alone; ``lookup`` then takes
+    ``(shards, m)`` keys."""
 
     slots_key: torch.Tensor
     slots_row: torch.Tensor
@@ -311,16 +315,18 @@ class StaticHashTable:
     def build(keys: torch.Tensor, valid: Optional[torch.Tensor] = None,
               capacity: Optional[int] = None,
               max_probes: int = 32) -> "StaticHashTable":
-        n = keys.shape[0]
+        lead, n = tuple(keys.shape[:-1]), keys.shape[-1]
         device = keys.device
         cap = capacity or next_pow2(2 * n)
         mask = cap - 1
         keys = keys.to(torch.int64)
-        rows = torch.arange(n, dtype=torch.int32, device=device)
+        rows = torch.arange(n, dtype=torch.int32, device=device).expand(
+            lead + (n,))
         if valid is None:
-            valid = torch.ones(n, dtype=torch.bool, device=device)
+            valid = torch.ones(lead + (n,), dtype=torch.bool, device=device)
 
-        slots_row = torch.full((cap,), -1, dtype=torch.int32, device=device)
+        slots_row = torch.full(lead + (cap,), -1, dtype=torch.int32,
+                               device=device)
         placed = ~valid  # invalid rows are "already placed" (i.e. skipped)
         h0 = _hash(keys, mask)
         for i in range(max_probes):
@@ -329,18 +335,20 @@ class StaticHashTable:
             # scratch is merged only into slots that are still empty, so
             # earlier winners are never displaced.
             attempt = torch.where(placed, -1, rows)
-            bids = torch.full((cap,), -1, dtype=torch.int32, device=device)
-            bids.scatter_reduce_(0, cand, attempt, "amax")
+            bids = torch.full(lead + (cap,), -1, dtype=torch.int32,
+                              device=device)
+            bids.scatter_reduce_(-1, cand, attempt, "amax")
             empty = slots_row == -1
             slots_row = torch.where(empty & (bids >= 0), bids, slots_row)
-            won = (~placed) & (slots_row[cand] == rows)
+            won = (~placed) & (torch.gather(slots_row, -1, cand) == rows)
             placed = placed | won
         if n:
             slots_key = torch.where(
-                slots_row >= 0, keys[torch.clamp(slots_row, 0, n - 1).long()],
+                slots_row >= 0,
+                torch.gather(keys, -1, torch.clamp(slots_row, 0, n - 1).long()),
                 -1)
         else:
-            slots_key = torch.full((cap,), -1, dtype=torch.int64,
+            slots_key = torch.full(lead + (cap,), -1, dtype=torch.int64,
                                    device=device)
         return StaticHashTable(slots_key, slots_row, cap, max_probes,
                                torch.all(placed))
@@ -356,8 +364,8 @@ class StaticHashTable:
         done = torch.zeros(keys.shape, dtype=torch.bool, device=keys.device)
         for i in range(self.max_probes):
             cand = ((h0 + i) & mask).long()
-            k = self.slots_key[cand]
-            r = self.slots_row[cand]
+            k = torch.gather(self.slots_key, -1, cand)
+            r = torch.gather(self.slots_row, -1, cand)
             hit = (~done) & (k == keys) & (r >= 0)
             miss_empty = (~done) & (r == -1)  # empty slot ⇒ key absent
             found_row = torch.where(hit, r, found_row)

@@ -8,7 +8,9 @@
   8 logical shards equals the reference's ``shard_map`` on 8 forced host
   devices (``tests/_torch_dist_ref_worker.py``, one subprocess for the
   module): received buffers, validity and overflow, an overflowing case
-  included, exactly.
+  included, exactly; but ``shuffle_hierarchical``'s overflow is the whole
+  mesh's (a plain count), where the reference's misses rows dropped
+  outside a shard's own pod and data groups.
 * ``place_exchanges`` + ``cut_fragments`` + ``explain_placed`` on the 22
   TPC-H and 15 ClickBench plans at 1, 2, 4 and 8 shards give the
   reference's fragments: ids, kinds, keys, placements, deps, ``run_once``,
@@ -204,15 +206,43 @@ def test_all_reduce_sum_equals_the_reference(collectives):
     np.testing.assert_array_equal(got.numpy(), ref["all_reduce_sum"])
 
 
+def _hierarchical_overflow(inp, caps, pods=2, data=4) -> int:
+    """Rows past their buckets in both stages of the pod-aware shuffle,
+    counted over every shard, plainly: a stage keeps each (shard,
+    destination) group's first rows, in row order."""
+    g = ref_np_partition_hash(inp["cols"]["k"], pods * data).reshape(
+        pods * data, CAP)
+    valid = inp["valid"].reshape(pods * data, CAP)
+    over, arrived = 0, [[] for _ in range(pods * data)]
+    for s in range(pods * data):
+        for q in range(pods):
+            rows = np.flatnonzero(valid[s] & (g[s] // data == q))
+            over += max(len(rows) - caps[0], 0)
+            arrived[q * data + s % data] += list(g[s, rows[:caps[0]]] % data)
+    for got in arrived:
+        over += int(np.maximum(np.bincount(got, minlength=data) - caps[1],
+                               0).sum())
+    return over
+
+
 @pytest.mark.parametrize("caps", HIER_CAPS)
 def test_shuffle_hierarchical_equals_the_reference(collectives, caps):
+    """Frames equal the reference's; the overflow is the whole mesh's count
+    on every shard, where the reference's shard sees only the rows dropped
+    in its own pod and data groups (ROADMAP queue 3)."""
     inp, ref = collectives
     mesh = ShardMesh((("pod", 2), ("data", 4)), torch.device("cpu"))
     got, ov = shuffle_hierarchical(_sharded(inp), "k", mesh, "pod", "data",
                                    *caps)
     want = ref[("shuffle_hierarchical", caps)]
-    _assert_frame(got, *want[:2], ov, want[2])
-    assert (int(ov[0]) > 0) == (caps == (16, 16))
+    _assert_frame(got, *want[:2])
+    total = _hierarchical_overflow(inp, caps)
+    np.testing.assert_array_equal(ov.numpy(), np.full(N_SHARDS, total))
+    assert (total > 0) == (caps == (16, 16))
+    if total:
+        assert (want[2] < total).all()
+    else:
+        assert (want[2] == 0).all()
 
 
 def test_bloom_across_shards_equals_the_reference(collectives):

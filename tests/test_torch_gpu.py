@@ -1013,3 +1013,47 @@ def test_distributed_q3_with_kernels_equals_the_eager_engine_on_card(
     assert launched["hash_probe"] + launched["groupby_sum"] > 0
     assert all(t["master"].device.type == "cuda"
                for t in eng.tables.values())
+
+
+# ---------------------------------------------------------------------------
+# launch/: the SQL fragments on logical shards of the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("multi_pod", [False, True])
+@pytest.mark.parametrize("shape", ["q1", "q3"])
+def test_sql_fragment_on_card_equals_the_plain_answer(dev, shape, multi_pod):
+    """8 shards at SF0.5: Q1's sums (summed in fixed point on the card,
+    one float32 rounding of five float32 roundings a term) and Q3's
+    overflow (0) and each shard's top-10."""
+    from repro_torch.exchange.service import ShardMesh
+    from repro_torch.launch import sql_data, sql_dryrun
+    mesh = (ShardMesh((("pod", 2), ("data", 4)), dev) if multi_pod
+            else ShardMesh.of(8, dev))
+    fn, _, extra = sql_dryrun.lower_sql_fragment(shape, multi_pod, sf=0.5,
+                                                 mesh=mesh)
+    if shape == "q1":
+        data = sql_data.q1_data(extra, 0.5, 7, device=dev)
+        sql_data.hold_q1(fn(mesh, *data), sql_data.plain_q1(*data),
+                         rtol=6 * 2.0 ** -24)
+        return
+    data = sql_data.q3_data(extra, 0.5, 7, device=dev)
+    got = fn(mesh, *data)
+    plain = sql_data.plain_q3(data, extra, 2 if multi_pod else 1, False)
+    assert int(got[-1]) == plain["overflow"] == 0
+    sql_data.hold_q3(got, plain, 8, rtol=4 * 2.0 ** -24)
+    # the same fragment again gives the same answer to the bit
+    again = fn(mesh, *data)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_sql_dry_run_on_card_takes_the_card_branch(dev):
+    """The dry run's fake CUDA tensors sum floats as the card does: in fixed
+    point (a float64 copy and two int64 ones of the (N, 6) matrix)."""
+    from repro_torch.launch import dryrun
+    rec = dryrun.run_cell(dryrun.SQL_ARCH, "q1_sf100", False)
+    assert rec["status"] == "ok" and rec["memory"]["fits_card"]
+    assert rec["memory"]["card_bytes"] == torch.cuda.get_device_properties(
+        0).total_memory
+    cap = rec["cap"]
+    assert rec["memory"]["temp_bytes"] > cap * 6 * (8 + 8 + 8)

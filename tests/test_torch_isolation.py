@@ -38,7 +38,10 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
         "repro_torch.runtime.checkpoint, repro_torch.runtime.control, "
         "repro_torch.optimizer.exchange, repro_torch.exchange.service, "
         "repro_torch.exchange.bloom, repro_torch.core.distributed, "
-        "repro_torch.core.static_ops\n"
+        "repro_torch.core.static_ops, repro_torch.launch, "
+        "repro_torch.launch.mesh, repro_torch.launch.analysis, "
+        "repro_torch.launch.sql_dryrun, repro_torch.launch.sql_data, "
+        "repro_torch.launch.dryrun\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
         "print(','.join(bad))\n")

@@ -22,8 +22,9 @@ nothing of JAX or of the JAX package ``repro``, and:
    included), ``topk_select`` at a
    main-path shape and at a 2^20-key shape with heavy ties, and
    ``decode_attention`` at the server's shape (batch 8, llama3.2-3b's
-   heads, an 8192-row bf16 cache), at 32,768 rows (batch 4, and batch 1)
-   and in float32 with group 7: 2e-5 in float32 and 3e-2 in bf16 (the
+   heads, an 8192-row bf16 cache), at 32,768 rows (batch 4, and batch 1),
+   in float32 with group 7 and at phase 6b's group 4 (phi3.5-moe's and
+   jamba's 32 and 8 heads): 2e-5 in float32 and 3e-2 in bf16 (the
    reference's tolerances) against the plain version, and in bf16 also
    element by element against the plain version on the inputs cast to
    float32, unrounded, within half a bf16 ulp of that value plus 1e-5
@@ -167,6 +168,27 @@ nothing of JAX or of the JAX package ``repro``, and:
    forward's greedy choice over the same sequence in the same way.  It
    prints the prefill and decode tokens/s, the median decode step and the
    peak device memory;
+6b. drives the MoE, MLA and Mamba families at full width, one after the
+   other with the card's memory freed between them: ``phi3.5-moe-42b-a6.6b``
+   (16 of 32 layers served), ``deepseek-v2-lite-16b`` (all 27),
+   ``falcon-mamba-7b`` (all 64) and ``jamba-v0.1-52b`` (16 of 32: two
+   periods of 8), random weights from ``serve_lm``'s seed
+   (``FAMILY_LAYERS``).  For each: (a) in float32 at a cut depth (8, 9, 64
+   and 8 layers; the capacity factor E / k, so the forward drops no token)
+   teacher-forced ``decode_step`` against the forward as in phase 6, within
+   ``LOGPROB_LIMIT_F32``, greedy tokens at twice it, each row up to its
+   first token that the two paths route to other experts at a router
+   logit tie (margin under ``ROUTE_TIE``); (b) falcon-mamba only, phase
+   6's bf16 check at 64 layers, read against ``LOGPROB_LIMIT`` and not
+   held (the reference's own bf16 forward and decode differ by more); (c)
+   ``serve`` answers phase 6's workload in bf16 at the served depth:
+   ``decode_attention`` must launch once per attention layer and step (16
+   and 2 a step for phi3.5-moe and jamba, 0 for the other two), tokens in
+   ``[0, vocab)``, and every served token equal to the argmax of a
+   teacher-forced ``decode_step`` re-run over the same padded sequence in
+   the same batch.  It prints weight bytes and params, init
+   seconds, prefill and decode tokens/s, the median decode step, the peak
+   device memory, the launches and the family's seconds;
 7. prints the kernels' JSON line, then as its last line
    ``{"ok": true, "device": {...}}``.
 
@@ -340,6 +362,42 @@ LM_CHECK_SEEDS = 3
 # (0.116 on an NVIDIA H100 80GB HBM3, 700 W, one seed); it prints the
 # reading at each seed
 LOGPROB_LIMIT = 0.25
+
+# phase 6b: the MoE, MLA and Mamba families at full width, one card.  Each
+# config's layers served in bf16 (the depth cut: phi3.5-moe and jamba take
+# 83.7 and 103.1 GB at full depth; jamba's cut keeps whole periods of 8)
+# and in the float32 check (under 60 GB of float32 weights: deepseek's
+# dense prefix layer plus 8, jamba one period)
+FAMILY_LAYERS = {
+    "phi3.5-moe-42b-a6.6b": (16, 8),
+    "deepseek-v2-lite-16b": (27, 9),
+    "falcon-mamba-7b": (64, 64),
+    "jamba-v0.1-52b": (16, 8),
+}
+# max |delta log-softmax| between teacher-forced decode and the forward in
+# float32 (the capacity factor E / k, so the forward drops no token): both
+# compute in float32, and differ by the order of their sums (the forward's
+# blockwise attention and whole-sequence products against the kernel and
+# one-row products).  Set at about twice the largest first reading
+# (1.04e-4, falcon-mamba's 64 layers, on an NVIDIA H100 80GB HBM3, 700 W);
+# it prints the reading of each family.  Even in float32 a router logit
+# tie goes either way: from the first token the two paths route to other
+# experts (phi3.5-moe's seed has one, at a margin of 5.7e-6), a row is not
+# compared, and that token's margin must be under ROUTE_TIE, several times
+# the most the two paths' router logits differ where they are compared
+# (``router_logit_max_diff``, printed).
+# The MoE families have no bf16 check of this kind: bf16 moves the router's
+# input far more, and one flipped expert moves a token's logits by far more
+# than LOGPROB_LIMIT
+LOGPROB_LIMIT_F32 = 2e-4
+ROUTE_TIE = 1e-4
+# falcon-mamba's bf16 decode against its bf16 forward at 64 layers reads
+# 0.4271 (NVIDIA H100 80GB HBM3, 700 W), over LOGPROB_LIMIT: the
+# reference's forward rounds its causal conv tap by tap in bf16 where its
+# decode step sums the taps in float32, and 64 layers add it up.  So the
+# phase reads it and does not hold it; the float32 check at all 64 layers
+# holds the family's math, and each served token is held against a
+# teacher-forced re-run
 
 
 def emit(obj) -> None:
@@ -899,8 +957,10 @@ def check_decode_attention(rng, dev) -> dict:
     """The row is the server's call (phase 6: batch 8, llama3.2-3b's 24
     query and 8 KV heads of 128, an 8192-row bf16 cache, ragged lengths in
     64-576); decode_32k's 32,768-row cache, a float32 group-7 case with
-    length 0 and batch 1 over a full 32,768-row cache (the fewest (row, KV
-    head) units, so the most splits) go under ``other_shapes``."""
+    length 0, batch 1 over a full 32,768-row cache (the fewest (row, KV
+    head) units, so the most splits) and phase 6b's call of phi3.5-moe and
+    jamba (32 query and 8 KV heads: group 4, the largest a block takes
+    whole) go under ``other_shapes``."""
     lengths = [int(x) for x in rng.integers(64, 577, 8)]
     main = _decode_case(8, 24, 8, 128, 8192, lengths, "bfloat16",
                         "the server's batch", rng, dev)
@@ -910,7 +970,11 @@ def check_decode_attention(rng, dev) -> dict:
                        "float32, group 7, D=64", rng, dev)
     one = _decode_case(1, 24, 8, 128, 32768, [32768], "bfloat16",
                        "batch 1, a full 32,768-row cache", rng, dev)
-    return {**main, "other_shapes": [long, f32, one]}
+    group4 = _decode_case(8, 32, 8, 128, 8192,
+                          [int(x) for x in rng.integers(64, 577, 8)],
+                          "bfloat16", "phi3.5-moe's and jamba's call, group 4",
+                          rng, dev)
+    return {**main, "other_shapes": [long, f32, one, group4]}
 
 
 # phase 3's checks, in order; each runs in a process of its own
@@ -2348,12 +2412,13 @@ def run_launch(card: str, dev) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def _greedy_check(forward, chosen, what: str) -> dict:
+def _greedy_check(forward, chosen, what: str,
+                  limit: float = LOGPROB_LIMIT) -> dict:
     """Hold the tokens ``chosen`` against the forward logits' argmax
-    wherever the forward's top-2 margin exceeds twice LOGPROB_LIMIT: an
-    error of at most the limit in each log-prob moves a margin by at most
-    twice it, so it cannot flip such a token."""
-    margin = 2 * LOGPROB_LIMIT
+    wherever the forward's top-2 margin exceeds twice ``limit``: an error
+    of at most the limit in each log-prob moves a margin by at most twice
+    it, so it cannot flip such a token."""
+    margin = 2 * limit
     top2 = forward.topk(2, dim=-1).values
     sure = (top2[..., 0] - top2[..., 1]) > margin
     agree = forward.argmax(-1) == chosen
@@ -2365,9 +2430,89 @@ def _greedy_check(forward, chosen, what: str) -> dict:
             "greedy_agree_share": float(agree.float().mean())}
 
 
-def _decode_vs_forward(cfg, seed: int, dev) -> dict:
+class _RouterLog:
+    """While entered, records the router logits of every ``MoE.route`` call
+    (float32, as the call computes them), in call order."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __enter__(self):
+        import torch
+        from repro_torch.models import layers
+        self._layers, self._route = layers, layers.MoE.route
+        route, calls = self._route, self.calls
+
+        def logged(mod, xf, router):
+            calls.append((id(mod), xf.to(torch.float32)
+                          @ router.to(torch.float32)))
+            return route(mod, xf, router)
+
+        layers.MoE.route = logged
+        return self
+
+    def __exit__(self, *exc):
+        self._layers.MoE.route = self._route
+
+
+def _held_positions(fwd: _RouterLog, dec: _RouterLog, b: int, s: int,
+                    k: int, what: str):
+    """Where the forward and the teacher-forced decode pick other top-k
+    experts (a router logit tie within float32 noise goes either way), the
+    two paths compute other functions from that token on.  → (mask (b, s)
+    of the positions before each row's first such token, summary); the
+    first flip of each row must be at a tie: the forward's k-th and
+    (k+1)-th router logits within ROUTE_TIE."""
+    import torch
+    layers = {}
+    for mid, lg in fwd.calls:
+        layers[mid] = (lg.reshape(b, s, -1), [])
+    for mid, lg in dec.calls:
+        layers[mid][1].append(lg)
+    flips, gaps, diffs = [], [], []
+    for f, d in layers.values():
+        d = torch.stack(d, dim=1)
+
+        def pick(x):
+            return x.topk(k, dim=-1).indices.sort(dim=-1).values
+
+        flips.append((pick(f) != pick(d)).any(-1))
+        top = f.topk(k + 1, dim=-1).values
+        gaps.append(top[..., k - 1] - top[..., k])
+        diffs.append((f - d).abs().amax(-1))
+    flips, gaps = torch.stack(flips), torch.stack(gaps)     # (layers, b, s)
+    diffs = torch.stack(diffs)
+    held = torch.ones((b, s), dtype=torch.bool, device=flips.device)
+    ties = []
+    for row in range(b):
+        at = flips[:, row].any(0).nonzero()
+        if at.numel() == 0:
+            continue
+        pos = int(at[0])
+        layer = int(flips[:, row, pos].nonzero()[0])
+        gap = float(gaps[layer, row, pos])
+        if not gap < ROUTE_TIE:
+            raise AssertionError(f"{what}: row {row} routes token {pos} of "
+                                 f"layer {layer} differently where the "
+                                 f"forward's top-{k} margin is {gap:.3g}")
+        held[row, pos:] = False
+        ties.append({"row": row, "position": pos, "moe_layer": layer,
+                     "logit_gap": gap})
+    # how far the two paths' router logits lie apart where they are compared
+    noise = float(diffs[:, held].max()) if bool(held.any()) else 0.0
+    return held, {"route_flips": int(flips.sum()), "first_flips": ties,
+                  "router_logit_max_diff": noise}
+
+
+def _decode_vs_forward(cfg, seed: int, dev, limit: float = LOGPROB_LIMIT,
+                       hold: bool = True) -> dict:
     """Teacher-forced decode_step logits against logits_fn(forward(...)) for
-    a model and LM_CHECK tokens drawn from ``seed``."""
+    a model and LM_CHECK tokens drawn from ``seed``: max |delta log-softmax|
+    within ``limit``, greedy tokens by ``_greedy_check``.  With MoE layers,
+    over the positions before a row's first token that the two paths route
+    to other experts (``_held_positions``).  ``hold=False`` only reads the
+    error (and whether it is within ``limit``)."""
+    import contextlib
     import torch
     from repro_torch.models.lm import CausalLM
     vocab = cfg.vocab
@@ -2375,22 +2520,41 @@ def _decode_vs_forward(cfg, seed: int, dev) -> dict:
     b, s = LM_CHECK
     rng = np.random.default_rng(seed)
     toks = torch.from_numpy(rng.integers(0, vocab, (b, s))).to(dev)
+
+    def log():
+        return _RouterLog() if cfg.moe else contextlib.nullcontext()
+
     with torch.inference_mode():
-        forward = model.logits_fn(model.forward(toks))[..., :vocab]
+        with log() as fwd_log:
+            forward = model.logits_fn(model.forward(toks))[..., :vocab]
         cache = model.init_cache(b, s)
         steps = []
-        for i in range(s):
-            logits, cache = model.decode_step(cache, toks[:, i:i + 1])
-            steps.append(logits[:, 0, :vocab])
+        with log() as dec_log:
+            for i in range(s):
+                logits, cache = model.decode_step(cache, toks[:, i:i + 1])
+                steps.append(logits[:, 0, :vocab])
         decoded = torch.stack(steps, dim=1)
-    err = float((torch.log_softmax(decoded, -1)
-                 - torch.log_softmax(forward, -1)).abs().max())
-    if not err <= LOGPROB_LIMIT:
-        raise AssertionError(f"decode vs forward (seed {seed}): max |delta "
-                             f"log-softmax| {err:.4g} exceeds {LOGPROB_LIMIT}")
+    del model, cache
+    what = f"{cfg.name} decode vs forward (seed {seed}, {cfg.dtype})"
+    routing = {}
+    held = torch.ones((b, s), dtype=torch.bool, device=decoded.device)
+    if cfg.moe:
+        held, routing = _held_positions(fwd_log, dec_log, b, s,
+                                        cfg.moe.top_k, what)
+    err = float((torch.log_softmax(decoded[held], -1)
+                 - torch.log_softmax(forward[held], -1)).abs().max())
+    if not hold:
+        agree = decoded.argmax(-1) == forward.argmax(-1)
+        return {"seed": seed, "max_abs_logprob_err": err,
+                "within_limit": err <= limit, "held": False,
+                "greedy_agree_share": float(agree.float().mean())}
+    if not err <= limit:
+        raise AssertionError(f"{what}: max |delta log-softmax| {err:.4g} "
+                             f"exceeds {limit}")
     return {"seed": seed, "max_abs_logprob_err": err,
-            **_greedy_check(forward, decoded.argmax(-1),
-                            f"decode vs forward (seed {seed})")}
+            "positions_compared": int(held.sum()), **routing,
+            **_greedy_check(forward[held], decoded.argmax(-1)[held], what,
+                            limit)}
 
 
 def run_lm_serve(card: str, dev) -> dict:
@@ -2476,6 +2640,148 @@ def run_lm_serve(card: str, dev) -> dict:
     return {**out, "launches": launches}
 
 
+# ---------------------------------------------------------------------------
+# phase 6b: the MoE, MLA and Mamba families (phi3.5-moe, deepseek-v2-lite,
+# falcon-mamba, jamba) at full width
+# ---------------------------------------------------------------------------
+
+
+def _teacher_forced_argmax(model, prompts, tokens, vocab: int):
+    """The argmax of decode_step's logits where ``serve`` chose each of
+    ``tokens``: the padded prompts (token 0 past a prompt's end, as serve
+    feeds them) then the generated tokens, teacher-forced through a new
+    cache of the same batch and rows."""
+    import torch
+    from repro_torch.serve_lm import MAX_CACHE
+    dev = model.device
+    batch, n_new = tokens.shape
+    maxp = max(len(p) for p in prompts)
+    seq = np.zeros((batch, maxp + n_new - 1), np.int64)
+    for i, p in enumerate(prompts):
+        seq[i, :len(p)] = p
+    seq[:, maxp:] = tokens[:, :-1]
+    seq_t = torch.from_numpy(seq).to(dev)
+    cache = model.init_cache(batch, MAX_CACHE)
+    chosen = []
+    with torch.inference_mode():
+        for i in range(seq.shape[1]):
+            logits, cache = model.decode_step(cache, seq_t[:, i:i + 1])
+            if i >= maxp - 1:
+                chosen.append(logits[:, 0, :vocab].argmax(-1))
+    return torch.stack(chosen, dim=1).cpu().numpy()
+
+
+def run_lm_family(card: str, dev, arch: str) -> dict:
+    """One family at full width: (a) the float32 decode-vs-forward check at
+    FAMILY_LAYERS' cut, (b) for falcon-mamba phase 6's bf16 reading at the
+    served depth, (c) ``serve_lm``'s workload in bf16 at the served depth,
+    each served token equal to the argmax of a teacher-forced decode_step
+    re-run over the same sequence in the same batch (the decode step is
+    deterministic: the MoE combine adds in a fixed order)."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+    from repro_torch.models.lm import CausalLM
+    from repro_torch.serve_lm import (BATCH, MAX_CACHE, N_NEW, SEED, serve,
+                                      serve_metrics, workload_prompts)
+
+    t_phase = time.perf_counter()
+    full = get_config(arch)
+    served, checked = FAMILY_LAYERS[arch]
+    moe = full.moe
+    f32 = dataclasses.replace(
+        full, n_layers=checked, dtype="float32",
+        moe=moe and dataclasses.replace(
+            moe, capacity_factor=moe.n_experts / moe.top_k))
+    check = _decode_vs_forward(f32, SEED, dev, LOGPROB_LIMIT_F32)
+    emit({"phase": "lm_family_decode_vs_forward", "arch": arch,
+          "dtype": "float32", "layers": checked, "limit": LOGPROB_LIMIT_F32,
+          "greedy_margin": 2 * LOGPROB_LIMIT_F32, **check})
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(full, n_layers=served)
+    checks = [check]
+    if moe is None:
+        # read, not held: the reference's own bf16 forward and decode differ
+        # here by more than LOGPROB_LIMIT (see LOGPROB_LIMIT_F32's comment)
+        checks.append(_decode_vs_forward(cfg, SEED, dev, hold=False))
+        emit({"phase": "lm_family_decode_vs_forward", "arch": arch,
+              "dtype": cfg.dtype, "layers": served, "limit": LOGPROB_LIMIT,
+              **checks[-1]})
+        torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    model = CausalLM(cfg, device=dev, seed=SEED)
+    torch.cuda.synchronize()
+    init = {"arch": arch, "layers": served, "of_layers": full.n_layers,
+            "d_model": cfg.d_model, "dtype": str(model.dtype),
+            "init_s": time.perf_counter() - t0,
+            "weight_bytes": sum(p.numel() * p.element_size()
+                                for p in model.parameters()),
+            "params": sum(p.numel() for p in model.parameters())}
+    emit({"phase": "lm_family_init", **init})
+    vocab = cfg.vocab
+    prompts = workload_prompts(vocab)
+    n_attn = sum(k.mixer == "attn" for k in model.plan)
+
+    # serving: this family's main path, counted from 0
+    torch.cuda.reset_peak_memory_stats(dev)
+    build.reset_launch_counts()
+    result = serve(model, prompts, N_NEW, MAX_CACHE)
+    launches = build.launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    steps = result["prefill_steps"] + N_NEW
+    if launches["decode_attention"] != n_attn * steps:
+        raise AssertionError(f"{arch}: decode_attention launched "
+                             f"{launches['decode_attention']} times over "
+                             f"{steps} steps of {n_attn} attention layers")
+    tokens = np.asarray(result["tokens"])
+    if tokens.shape != (BATCH, N_NEW) or tokens.min() < 0 or tokens.max() >= vocab:
+        raise AssertionError(f"{arch} served tokens: shape {tokens.shape}, "
+                             f"range {tokens.min()}..{tokens.max()}")
+    maxp = result["prefill_steps"]
+    again = _teacher_forced_argmax(model, prompts, tokens, vocab)
+    differ = int((again != tokens).sum())
+    if differ:
+        raise AssertionError(f"{arch}: {differ} served tokens differ from "
+                             f"the teacher-forced decode re-run")
+    del model
+    torch.cuda.empty_cache()
+    out = {"card": card, "arch": arch, "layers": served,
+           "of_layers": full.n_layers, "requests": BATCH,
+           "prompt_lengths": [len(p) for p in prompts], "n_new": N_NEW,
+           "max_cache": MAX_CACHE, **serve_metrics(result),
+           "prefill_s": result["prefill_s"], "decode_s": result["decode_s"],
+           "prefill_steps": maxp, "decode_steps": N_NEW,
+           "attn_layers": n_attn,
+           "decode_attention_launches": launches["decode_attention"],
+           "peak_memory_bytes": peak,
+           "served_tokens_held": int(tokens.size),
+           "seconds": time.perf_counter() - t_phase}
+    emit({"phase": "lm_family_serve", **out})
+    print(f"lm_family {arch} ({served} of {full.n_layers} layers, "
+          f"{init['weight_bytes']} weight bytes, {init['params']} params, "
+          f"init {init['init_s']:.2f} s): prefill "
+          f"{out['prefill_tokens_per_s']:.1f} tokens/s, decode "
+          f"{out['decode_tokens_per_s']:.1f} tokens/s, median step "
+          f"{out['median_step_ms']:.3f} ms, peak memory {peak} bytes, "
+          f"decode_attention {launches['decode_attention']} launches, "
+          f"{out['seconds']:.1f} s on {card}", flush=True)
+    return {**out, "decode_vs_forward": checks, "init": init,
+            "launches": launches}
+
+
+def run_lm_families(card: str, dev) -> dict:
+    """Phase 6b: each family of FAMILY_LAYERS in turn, the card's memory
+    freed between them."""
+    import torch
+    out = {}
+    for arch in FAMILY_LAYERS:
+        out[arch] = run_lm_family(card, dev, arch)
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke.py: src/repro_torch not found beside the script",
@@ -2526,6 +2832,8 @@ def main() -> int:
     report["launch"] = run_launch(card, dev)
     torch.cuda.empty_cache()
     report["lm_serve"] = run_lm_serve(card, dev)
+    torch.cuda.empty_cache()
+    report["lm_families"] = run_lm_families(card, dev)
     by_path = {"tpch": report["main_path"]["launches"],
                "tpch_compiled": report["compiled_path"]["launches"],
                "clickbench": report["clickbench"]["launches"],
@@ -2533,7 +2841,9 @@ def main() -> int:
                "analyze": report["analyze"]["launches"],
                "distributed": report["distributed"]["launches"],
                "sql_fragments": report["launch"]["launches"],
-               "lm_serve": report["lm_serve"]["launches"]}
+               "lm_serve": report["lm_serve"]["launches"],
+               **{f"lm_serve/{arch}": r["launches"]
+                  for arch, r in report["lm_families"].items()}}
     line = []
     for row in kernels:
         name = row["name"]

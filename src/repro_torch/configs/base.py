@@ -1,17 +1,42 @@
 """Architecture config schema — counterpart of ``repro/configs/base.py``.
 
-The dense-family part of the reference's ``ArchConfig``, shape set,
-registry, ``reduced()`` and ``param_count()`` (pure Python, kept here so the
-port imports nothing of ``repro``).  ``ArchConfig`` keeps every field of the
-reference's, so a dense configuration is the same record in both packages;
-the MoE, Mamba and MLA sub-configs stay opaque (``layer_plan`` reads only
-whether one is set) until the slice that ports their family.  ``get_config``
-of a configuration of another family raises ``NotImplementedError``.
+The reference's ``ArchConfig`` with its MoE, Mamba and MLA sub-configs, the
+shape set, the registry, ``reduced()``, ``param_count()`` and
+``active_param_count()`` (pure Python, kept here so the port imports nothing
+of ``repro``): a configuration is the same record in both packages.
+``get_config`` of the encoder-decoder and VLM configurations, whose families
+the port does not run yet, raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Dict, List, Optional, Tuple
+
+
+@dataclasses.dataclass
+class MoECfg:
+    n_experts: int
+    top_k: int
+    expert_d_ff: int
+    n_shared: int = 0
+    capacity_factor: float = 1.25
+    router_dtype: str = "float32"
+
+
+@dataclasses.dataclass
+class MambaCfg:
+    d_state: int = 16
+    expand: int = 2
+    d_conv: int = 4
+    dt_rank: Optional[int] = None          # default ceil(d_model/16)
+
+
+@dataclasses.dataclass
+class MLACfg:
+    kv_lora_rank: int = 512
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
 
 
 @dataclasses.dataclass
@@ -47,11 +72,11 @@ class ArchConfig:
     rope_theta: float = 10_000.0
     norm_eps: float = 1e-6
     tie_embeddings: bool = False
-    moe: Optional[object] = None            # MoE sub-config (not ported)
+    moe: Optional[MoECfg] = None
     moe_every: int = 1                      # MoE layer cadence (jamba: 2)
     first_dense_layers: int = 0             # deepseek: layer 0 is dense FFN
-    mamba: Optional[object] = None          # Mamba sub-config (not ported)
-    mla: Optional[object] = None            # MLA sub-config (not ported)
+    mamba: Optional[MambaCfg] = None
+    mla: Optional[MLACfg] = None
     # hybrid pattern: for each layer index in a period, 'attn' or 'mamba'
     period: int = 1
     attn_idx_in_period: Tuple[int, ...] = (0,)
@@ -81,18 +106,73 @@ class ArchConfig:
         return out
 
     def param_count(self) -> int:
-        """Total parameters (embedding included once if tied); dense family
-        only."""
-        if self.family != "dense":
-            raise NotImplementedError(f"{self.name}: param_count of the "
-                                      f"{self.family} family is not ported")
+        """Total parameters (embedding included once if tied)."""
         d, hd = self.d_model, self.resolved_head_dim
-        attn = (d * self.n_heads * hd + 2 * d * self.n_kv_heads * hd
-                + self.n_heads * hd * d)
-        ffn = (3 if self.mlp_kind == "swiglu" else 2) * d * self.d_ff
-        return (self.n_layers * (attn + ffn + 2 * d)          # 2 norms a layer
-                + self.vocab * d * (1 if self.tie_embeddings else 2)
-                + d)                                           # final norm
+        per_layer_attn = 0
+        if self.mla is not None:
+            m = self.mla
+            q_dim = self.n_heads * (m.qk_nope_head_dim + m.qk_rope_head_dim)
+            per_layer_attn = (d * q_dim                       # W_q
+                              + d * (m.kv_lora_rank + m.qk_rope_head_dim)
+                              + m.kv_lora_rank * self.n_heads
+                              * (m.qk_nope_head_dim + m.v_head_dim)
+                              + self.n_heads * m.v_head_dim * d)
+        else:
+            per_layer_attn = (d * self.n_heads * hd
+                              + 2 * d * self.n_kv_heads * hd
+                              + self.n_heads * hd * d)
+
+        def ffn_params(ff):
+            return (3 if self.mlp_kind == "swiglu" else 2) * d * ff
+
+        def moe_params():
+            m = self.moe
+            routed = m.n_experts * ffn_params(m.expert_d_ff)
+            shared = m.n_shared * ffn_params(m.expert_d_ff)
+            return routed + shared + d * m.n_experts
+
+        def mamba_params():
+            mm = self.mamba
+            d_in = mm.expand * d
+            dt_rank = mm.dt_rank or -(-d // 16)
+            return (d * 2 * d_in + d_in * mm.d_conv
+                    + d_in * (dt_rank + 2 * mm.d_state) + dt_rank * d_in
+                    + d_in * mm.d_state + d_in + d_in * d)
+
+        total = 0
+        for li in range(self.n_layers):
+            in_period = li % self.period
+            is_attn = in_period in self.attn_idx_in_period
+            if self.family in ("ssm",) or (self.family == "hybrid" and not is_attn):
+                total += mamba_params()
+            else:
+                total += per_layer_attn
+            if self.moe is not None and li >= self.first_dense_layers \
+                    and (li % self.moe_every == (self.moe_every - 1)):
+                total += moe_params()
+            elif self.family != "ssm":
+                total += ffn_params(self.d_ff)
+            total += 2 * d  # norms
+        total += self.vocab * d * (1 if self.tie_embeddings else 2)
+        total += d  # final norm
+        if self.enc_layers:
+            total += self.enc_layers * (per_layer_attn + ffn_params(self.d_ff)
+                                        + 2 * d)
+        return total
+
+    def active_param_count(self) -> int:
+        """Parameters touched per token (MoE: only routed top-k experts)."""
+        if self.moe is None:
+            return self.param_count()
+        m = self.moe
+        full = self.param_count()
+        n_moe_layers = sum(
+            1 for li in range(self.n_layers)
+            if li >= self.first_dense_layers
+            and li % self.moe_every == (self.moe_every - 1))
+        per_expert = 3 * self.d_model * m.expert_d_ff
+        inactive = n_moe_layers * (m.n_experts - m.top_k) * per_expert
+        return full - inactive
 
 
 _REGISTRY: Dict[str, "ArchConfig"] = {}
@@ -103,10 +183,9 @@ def register(cfg: ArchConfig) -> ArchConfig:
     return cfg
 
 
-# configurations of the reference whose families (MoE, MLA, Mamba, hybrid,
-# encoder-decoder, VLM) the port does not run yet
-NOT_PORTED = ("deepseek-v2-lite-16b", "falcon-mamba-7b", "jamba-v0.1-52b",
-              "llava-next-mistral-7b", "phi3.5-moe-42b-a6.6b", "whisper-medium")
+# configurations of the reference whose families (encoder-decoder, VLM) the
+# port does not run yet
+NOT_PORTED = ("llava-next-mistral-7b", "whisper-medium")
 
 
 def get_config(name: str) -> ArchConfig:
@@ -114,8 +193,8 @@ def get_config(name: str) -> ArchConfig:
         _load_all()
     if name in NOT_PORTED:
         raise NotImplementedError(
-            f"{name}: only the dense family is ported to PyTorch so far; "
-            f"the other families are queued in ROADMAP.md (queue 1, LM stack)")
+            f"{name}: the encoder-decoder and VLM families are not ported to "
+            f"PyTorch yet; they are queued in ROADMAP.md (queue 1, LM stack)")
     return _REGISTRY[name]
 
 
@@ -126,13 +205,15 @@ def all_configs() -> Dict[str, ArchConfig]:
 
 
 def _load_all() -> None:
-    from . import llama32_3b, qwen2_72b, qwen2_7b, qwen3_4b  # noqa: F401
+    from . import (  # noqa: F401
+        deepseek_v2_lite_16b, falcon_mamba_7b, jamba_v01_52b, llama32_3b,
+        phi35_moe_42b, qwen2_72b, qwen2_7b, qwen3_4b,
+    )
 
 
 def reduced(cfg: ArchConfig) -> ArchConfig:
-    """Smoke-test variant of a dense configuration: same topology, tiny
-    dims."""
-    return dataclasses.replace(
+    """Smoke-test variant: same family/topology, tiny dims."""
+    small = dataclasses.replace(
         cfg,
         n_layers=min(cfg.n_layers, max(cfg.period, 2) * 2),
         d_model=64,
@@ -141,5 +222,19 @@ def reduced(cfg: ArchConfig) -> ArchConfig:
         head_dim=16,
         d_ff=128,
         vocab=503,
+        enc_layers=2 if cfg.enc_layers else 0,
+        enc_seq=32 if cfg.enc_seq else 0,
+        n_img_tiles=2 if cfg.n_img_tiles else 0,
+        img_patches=8 if cfg.img_patches else 0,
         dtype="float32",
     )
+    if cfg.moe is not None:
+        small.moe = MoECfg(n_experts=min(cfg.moe.n_experts, 8),
+                           top_k=min(cfg.moe.top_k, 2),
+                           expert_d_ff=64, n_shared=cfg.moe.n_shared and 1)
+    if cfg.mamba is not None:
+        small.mamba = MambaCfg(d_state=8, expand=2, d_conv=4)
+    if cfg.mla is not None:
+        small.mla = MLACfg(kv_lora_rank=32, qk_nope_head_dim=16,
+                           qk_rope_head_dim=8, v_head_dim=16)
+    return small

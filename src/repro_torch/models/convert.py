@@ -3,9 +3,13 @@
 The JAX package keeps a model's parameters as a nested dict: ``embed``,
 ``final_norm``, ``head`` (untied only), ``prefix`` (a list of blocks) and
 ``stack`` (``sub0`` ... ``sub{period-1}``, each leaf stacked on a leading
-``(n_periods,)`` axis).  ``params_from_numpy`` takes that tree with numpy
-leaves (``jax.tree.map(np.asarray, params)``) and copies it into a
-``CausalLM``, so that both packages compute the same function.
+``(n_periods,)`` axis: one block per period for uniform configurations,
+jamba's 8).  A block holds ``ln1``, its mixer (``attn`` for GQA and MLA,
+``mamba``) and, unless its ffn is ``none``, ``ln2`` and ``ffn`` (an MLP, or
+an MoE with an MLP ``shared``).  ``params_from_numpy`` takes that tree
+with numpy leaves (``jax.tree.map(np.asarray, params)``) and copies it into
+a ``CausalLM``, so that both packages compute the same function; every key
+set must be the model's exactly.
 """
 from __future__ import annotations
 
@@ -25,20 +29,18 @@ def _copy(dst: torch.Tensor, src: np.ndarray, name: str) -> None:
     dst.copy_(torch.tensor(np.asarray(src)))
 
 
-def _load_block(block, tree: Dict, name: str) -> None:
-    expected = {"ln1", "attn", "ln2", "ffn"}
-    if set(tree) != expected:
-        raise ValueError(f"{name}: keys {sorted(tree)}, expected "
-                         f"{sorted(expected)}")
-    _copy(block.ln1, tree["ln1"], f"{name}/ln1")
-    _copy(block.ln2, tree["ln2"], f"{name}/ln2")
-    for part, module in (("attn", block.attn), ("ffn", block.ffn)):
-        mine = dict(module.named_parameters(recurse=False))
-        if set(tree[part]) != set(mine):
-            raise ValueError(f"{name}/{part}: keys {sorted(tree[part])}, the "
-                             f"model has {sorted(mine)}")
-        for key, param in mine.items():
-            _copy(param, tree[part][key], f"{name}/{part}/{key}")
+def _load_module(module: torch.nn.Module, tree: Dict, name: str) -> None:
+    """Copy ``tree`` into ``module``: its keys must be the module's own
+    parameters and child modules, each child a subtree."""
+    params = dict(module.named_parameters(recurse=False))
+    children = dict(module.named_children())
+    if set(tree) != set(params) | set(children):
+        raise ValueError(f"{name}: keys {sorted(tree)}, the model has "
+                         f"{sorted(set(params) | set(children))}")
+    for key, param in params.items():
+        _copy(param, tree[key], f"{name}/{key}")
+    for key, child in children.items():
+        _load_module(child, tree[key], f"{name}/{key}")
 
 
 @torch.no_grad()
@@ -48,7 +50,8 @@ def params_from_numpy(cfg: ArchConfig, tree: Dict, device=None,
     compute ``dtype`` (the config's by default), holding the parameters of
     the reference's tree.  Matmul weights and norms are cast once to the
     compute dtype (the reference casts at every use: the same values); the
-    embedding and an untied head stay float32."""
+    embedding, an untied head, the MoE router and Mamba's ``a_log`` stay
+    float32."""
     model = CausalLM(cfg, device=device, dtype=dtype)
     _copy(model.embed, tree["embed"], "embed")
     _copy(model.final_norm, tree["final_norm"], "final_norm")
@@ -58,16 +61,22 @@ def params_from_numpy(cfg: ArchConfig, tree: Dict, device=None,
         raise ValueError("tied embeddings, but the tree has a head")
     blocks = list(model.blocks)
     n_prefix = cfg.first_dense_layers
+    if len(tree["prefix"]) != n_prefix:
+        raise ValueError(f"prefix: {len(tree['prefix'])} blocks, the model "
+                         f"has {n_prefix}")
     for i, bt in enumerate(tree["prefix"]):
-        _load_block(blocks[i], bt, f"prefix/{i}")
+        _load_module(blocks[i], bt, f"prefix/{i}")
     period = _period_len(cfg)
     stack = tree["stack"]
+    subs = {f"sub{j}" for j in range(period)}
+    if set(stack) != subs:
+        raise ValueError(f"stack: keys {sorted(stack)}, expected {sorted(subs)}")
     n_periods = (cfg.n_layers - n_prefix) // period
     for j in range(period):
         for i in range(n_periods):
-            _load_block(blocks[n_prefix + i * period + j],
-                        _period_slice(stack[f"sub{j}"], i),
-                        f"stack/sub{j}/{i}")
+            _load_module(blocks[n_prefix + i * period + j],
+                         _period_slice(stack[f"sub{j}"], i),
+                         f"stack/sub{j}/{i}")
     return model
 
 

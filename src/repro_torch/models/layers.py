@@ -1,27 +1,36 @@
-"""Model layers of the dense family — counterpart of ``repro/models/layers.py``.
+"""Model layers — counterpart of ``repro/models/layers.py``.
 
 Plain functions on tensors (``rmsnorm``, ``rope_freqs``, ``apply_rope``,
-``_attend_block``, ``blockwise_attention``) and ``nn.Module``s for the GQA
-attention layer and the MLP.  The arithmetic follows the reference step by
-step: norms and attention scores in float32, activations in the compute
-dtype, the same blocking in ``blockwise_attention`` (the prefill/forward
-attention, plain torch as it is plain jnp in the reference).
+``_attend_block``, ``blockwise_attention``, ``_causal_conv``) and
+``nn.Module``s for the GQA attention layer, MLA (DeepSeek-V2) attention,
+the MLP, the MoE layer and Mamba-1.  The arithmetic follows the reference
+step by step: norms and attention scores in float32, activations in the
+compute dtype, the same blocking in ``blockwise_attention`` (the
+prefill/forward attention, plain torch as it is plain jnp in the
+reference), the same sort-based MoE dispatch with capacity, the same scan.
 
 Differences from the reference, none of which changes a result:
 
 - Weights are kept in the compute dtype.  The reference stores float32 and
-  casts at every use; casting once at load gives the same values.
-- ``Attention.decode`` writes the new key and value into the cache in place
-  (the reference returns new cache arrays), so a step copies no cache.
-- ``constrain`` (the reference's mesh-sharding hint) is left out: on one
-  card it is the identity.
+  casts at every use; casting once at load gives the same values.  Two
+  leaves are the exception: the MoE ``router`` and Mamba's ``a_log`` stay
+  float32, because the reference's ``forward`` rounds them to the compute
+  dtype in the layer stack only (it casts every stacked leaf of three or
+  more dimensions before its scan) and its ``decode_step`` uses them as
+  stored.  Their ``forward`` takes ``stacked`` to say which.
+- ``Attention.decode`` and ``MLA.decode`` write the new rows into the cache
+  in place (the reference returns new cache arrays), so a step copies no
+  cache.
+- ``constrain`` (the reference's mesh-sharding hint) is left out, and the
+  MoE dispatch runs as one group (``_moe_groups``): on one card both are
+  the identity.
 - Decode attention goes through the hand-written kernel
   (``kernels/decode_attention.py``) where the reference calls its jnp
   twin ``decode_attention_ref``; the two compute the same function.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -45,16 +54,33 @@ def _param(t: torch.Tensor) -> nn.Parameter:
     return nn.Parameter(t, requires_grad=False)
 
 
+# The reference's activations, op by op in the input's dtype: XLA rounds
+# every step of jax.nn.silu (x * logistic(x), the logistic as
+# 1 / (1 + exp(-x))) and of jax.nn.softplus (logaddexp(x, 0)) to bf16,
+# where F.silu and F.softplus round once.
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    return x * torch.reciprocal(torch.exp(-x) + 1.0)
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    return x.clamp(min=0) + torch.log1p(torch.exp(-x.abs()))
+
+
 # ---------------------------------------------------------------------------
 # norms / rope
 # ---------------------------------------------------------------------------
 
 
-def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
-    """In float32, cast to x's dtype, then times the weight in that dtype."""
+def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float,
+            dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """In float32, cast to ``dtype`` (x's by default), then times the weight
+    in that dtype."""
+    dtype = dtype or x.dtype
     xf = x.to(torch.float32)
     var = (xf * xf).mean(dim=-1, keepdim=True)
-    return (xf * torch.rsqrt(var + eps)).to(x.dtype) * w.to(x.dtype)
+    return (xf * torch.rsqrt(var + eps)).to(dtype) * w.to(dtype)
 
 
 def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
@@ -260,5 +286,311 @@ class MLP(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.kind == "gelu":
             return F.gelu(x @ self.w1, approximate="tanh") @ self.w2
-        g = F.silu(x @ self.wg)
+        g = silu(x @ self.wg)
         return (g * (x @ self.wu)) @ self.wd
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V2) attention
+# ---------------------------------------------------------------------------
+
+
+class MLA(nn.Module):
+    """The reference's ``init_mla`` / ``_mla_qkv`` (``_q`` and the
+    expansion in ``forward`` and ``decode``) / ``mla_train`` (``forward``) /
+    ``mla_decode`` (``decode``).  The cache holds the latent
+    ``ckv`` (B,S,kv_lora_rank) and the rotated ``krope`` (B,S,rope_dim);
+    every call expands the whole latent into per-head K and V, as the
+    reference does."""
+
+    def __init__(self, cfg: ArchConfig, gen: torch.Generator, device,
+                 dtype: torch.dtype):
+        super().__init__()
+        self.cfg = cfg
+        m = cfg.mla
+        d, h = cfg.d_model, cfg.n_heads
+        qd = m.qk_nope_head_dim + m.qk_rope_head_dim
+        r = m.kv_lora_rank
+        self.wq = _param(normal(gen, (d, h * qd), d ** -0.5, device, dtype))
+        self.wdkv = _param(normal(gen, (d, r + m.qk_rope_head_dim), d ** -0.5,
+                                  device, dtype))
+        self.wuk = _param(normal(gen, (r, h * m.qk_nope_head_dim), r ** -0.5,
+                                 device, dtype))
+        self.wuv = _param(normal(gen, (r, h * m.v_head_dim), r ** -0.5,
+                                 device, dtype))
+        self.wo = _param(normal(gen, (h * m.v_head_dim, d),
+                                (h * m.v_head_dim) ** -0.5, device, dtype))
+        self.kv_norm = _param(torch.ones(r, dtype=dtype, device=device))
+
+    def _latent(self, x: torch.Tensor, pos: torch.Tensor):
+        """x (B,S,d) → the normed latent c_kv (B,S,r) and the rotated shared
+        rope key (B,S,rope_dim)."""
+        cfg, m = self.cfg, self.cfg.mla
+        c_kv, k_rope = (x @ self.wdkv).split(
+            [m.kv_lora_rank, m.qk_rope_head_dim], dim=-1)
+        c_kv = rmsnorm(c_kv, self.kv_norm, cfg.norm_eps)
+        k_rope = apply_rope(k_rope[:, :, None], pos, cfg.rope_theta)[:, :, 0]
+        return c_kv, k_rope
+
+    def _q(self, x: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+        """The rope-augmented query (B,S,H,nope+rope)."""
+        cfg, m = self.cfg, self.cfg.mla
+        b, s, _ = x.shape
+        q = (x @ self.wq).reshape(b, s, cfg.n_heads, m.qk_nope_head_dim
+                                  + m.qk_rope_head_dim)
+        q_nope, q_rope = q.split([m.qk_nope_head_dim, m.qk_rope_head_dim],
+                                 dim=-1)
+        return torch.cat([q_nope, apply_rope(q_rope, pos, cfg.rope_theta)],
+                         dim=-1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """mla_train: x (B,S,d) → (B,S,d), positions 0..S-1.  The latent is
+        expanded into per-head k (B,S,H,nope+rope) and v (B,S,H,v)."""
+        m = self.cfg.mla
+        b, s, _ = x.shape
+        h = self.cfg.n_heads
+        pos = torch.arange(s, dtype=torch.int32, device=x.device).expand(b, s)
+        c_kv, k_rope = self._latent(x, pos)
+        k_nope = (c_kv @ self.wuk).reshape(b, s, h, m.qk_nope_head_dim)
+        v = (c_kv @ self.wuv).reshape(b, s, h, m.v_head_dim)
+        k = torch.cat([k_nope, k_rope[:, :, None].expand(
+            b, s, h, m.qk_rope_head_dim)], dim=-1)
+        o = blockwise_attention(self._q(x, pos), k, v, causal=True)
+        return o.reshape(b, s, -1) @ self.wo
+
+    def decode(self, x: torch.Tensor, cache_ckv: torch.Tensor,
+               cache_krope: torch.Tensor, length: torch.Tensor) -> torch.Tensor:
+        """mla_decode: x (B,1,d); writes the new latent row at
+        ``min(length, S-1)`` in place (``dynamic_update_slice``'s clamp),
+        then expands every cache row into per-head K and V, as the reference
+        does, and attends in float32 over the rows below ``length + 1``."""
+        m = self.cfg.mla
+        b, h = x.shape[0], self.cfg.n_heads
+        pos = length[:, None].to(torch.int32)
+        c_kv, k_rope = self._latent(x, pos)
+        row = length.to(torch.int64).clamp(0, cache_ckv.shape[1] - 1)
+        batch = torch.arange(b, device=x.device)
+        cache_ckv[batch, row] = c_kv[:, 0]
+        cache_krope[batch, row] = k_rope[:, 0]
+        q = self._q(x, pos)[:, 0].to(torch.float32)              # (B,H,qd)
+        sl, nope = cache_ckv.shape[1], m.qk_nope_head_dim
+        # K and V written in float32 as (B,H,S,D) while they are converted,
+        # so that the two products read them with no further copy
+        k = torch.empty((b, h, sl, q.shape[-1]), dtype=torch.float32,
+                        device=x.device)
+        k[..., :nope] = (cache_ckv @ self.wuk).reshape(
+            b, sl, h, nope).transpose(1, 2)
+        k[..., nope:] = cache_krope[:, None]
+        v = (cache_ckv @ self.wuv).reshape(b, sl, h, m.v_head_dim).transpose(
+            1, 2).to(torch.float32, memory_format=torch.contiguous_format)
+        s_ = (q[:, :, None] @ k.transpose(-1, -2))[:, :, 0] \
+            / (q.shape[-1] ** 0.5)                                 # (B,H,S)
+        mask = torch.arange(sl, device=x.device)[None, None] \
+            < (length + 1)[:, None, None]
+        pr = torch.softmax(torch.where(mask, s_, NEG_INF), dim=-1)
+        o = (pr[:, :, None] @ v)[:, :, 0].to(x.dtype)             # (B,H,v)
+        return o.reshape(b, 1, -1) @ self.wo
+
+
+# ---------------------------------------------------------------------------
+# MoE
+# ---------------------------------------------------------------------------
+
+
+def moe_combine(contrib: torch.Tensor, tok: torch.Tensor,
+                t: int) -> torch.Tensor:
+    """Sum the (t·k, d) contributions into (t, d) rows by token ``tok`` in
+    the order the rows come, one add at a time in their dtype: what the
+    reference's ``zeros(...).at[tok].add(contrib)`` computes (its scatter
+    applies the updates in order).  Each token's ``k`` rows are gathered
+    and added in turn, with no atomics, so the card gives the same bits on
+    every call."""
+    k = contrib.shape[0] // t
+    # the positions of each token's rows, ascending
+    where = torch.sort(tok, stable=True).indices.reshape(t, k)
+    y = torch.zeros((t, contrib.shape[1]), dtype=contrib.dtype,
+                    device=contrib.device)
+    for j in range(k):
+        y = y + contrib[where[:, j]]
+    return y
+
+
+class MoE(nn.Module):
+    """The reference's ``init_moe`` / ``moe``: grouped sort-based token
+    dispatch with capacity, as one group.  Route top-k in float32, sort the
+    (token, expert) pairs by expert (stable), pack each expert's first
+    ``cap`` rows into an (E, cap, d) buffer (the overflow is dropped), run
+    the expert SwiGLU as batched products, and combine with the normalised
+    gate weights (0 for a dropped pair).  ``n_shared`` shared experts are
+    one MLP of ``n_shared * expert_d_ff``.  The router stays float32 (see
+    the module docstring)."""
+
+    def __init__(self, cfg: ArchConfig, gen: torch.Generator, device,
+                 dtype: torch.dtype):
+        super().__init__()
+        self.cfg = cfg
+        m = cfg.moe
+        d, ff, e = cfg.d_model, m.expert_d_ff, m.n_experts
+        self.router = _param(normal(gen, (d, e), d ** -0.5, device,
+                                    torch.float32))
+        self.wg = _param(normal(gen, (e, d, ff), d ** -0.5, device, dtype))
+        self.wu = _param(normal(gen, (e, d, ff), d ** -0.5, device, dtype))
+        self.wd = _param(normal(gen, (e, ff, d), ff ** -0.5, device, dtype))
+        self.shared = MLP(cfg, gen, device, dtype, d_ff=m.n_shared * ff) \
+            if m.n_shared else None
+
+    def route(self, xf: torch.Tensor, router: torch.Tensor):
+        """xf (t,d) → (slot, tok, w, cap): over the t·k (token, expert)
+        pairs in expert order, the buffer row of each pair (E·cap for a
+        dropped one), its token and its gate weight (0 where dropped); and
+        the rows per expert."""
+        m = self.cfg.moe
+        t = xf.shape[0]
+        e, k = m.n_experts, m.top_k
+        # rows per expert: k·t·capacity_factor/E up to a multiple of 8, >= 8
+        cap = max((int(t * k * m.capacity_factor / e) + 7) // 8 * 8, 8)
+        logits = xf.to(torch.float32) @ router.to(torch.float32)
+        gates = torch.softmax(logits, dim=-1)
+        # torch.topk fixes no order among exact ties (jax.lax.top_k takes
+        # the lower index); float32 gates of real inputs have none
+        top_w, top_e = torch.topk(gates, k, dim=-1)
+        top_w = top_w / top_w.sum(-1, keepdim=True).clamp(min=1e-9)
+        flat_e = top_e.reshape(-1)
+        order = torch.sort(flat_e, stable=True).indices
+        e_sorted = flat_e[order]
+        tok_sorted = order // k
+        w_sorted = top_w.reshape(-1)[order]
+        starts = torch.searchsorted(
+            e_sorted, torch.arange(e, device=xf.device, dtype=e_sorted.dtype))
+        pos = torch.arange(t * k, device=xf.device) - starts[e_sorted]
+        keep = pos < cap
+        slot = torch.where(keep, e_sorted * cap + pos,
+                           torch.full_like(pos, e * cap))
+        return slot, tok_sorted, w_sorted * keep, cap
+
+    def forward(self, x: torch.Tensor, stacked: bool = False) -> torch.Tensor:
+        """x (B,S,d) → (B,S,d).  ``stacked``: the layer is in the
+        reference's scanned stack, whose forward rounds the router to the
+        compute dtype first."""
+        m = self.cfg.moe
+        b, s, d = x.shape
+        t = b * s
+        e = m.n_experts
+        xf = x.reshape(t, d)
+        router = self.router.to(x.dtype) if stacked else self.router
+        slot, tok, w, cap = self.route(xf, router)
+        xbuf = torch.zeros((e * cap + 1, d), dtype=x.dtype, device=x.device)
+        xbuf[slot] = xf[tok]
+        xb = xbuf[:-1].reshape(e, cap, d)
+        yb = (silu(torch.bmm(xb, self.wg)) * torch.bmm(xb, self.wu))
+        yb = torch.bmm(yb, self.wd).reshape(e * cap, d)
+        contrib = yb[slot.clamp(0, e * cap - 1)] * w.to(x.dtype)[:, None]
+        y = moe_combine(contrib, tok, t)
+        if self.shared is not None:
+            y = y + self.shared(xf)
+        return y.reshape(b, s, d)
+
+
+# ---------------------------------------------------------------------------
+# Mamba-1 (selective SSM)
+# ---------------------------------------------------------------------------
+
+
+def _dt_rank(cfg: ArchConfig) -> int:
+    return cfg.mamba.dt_rank or -(-cfg.d_model // 16)
+
+
+def _causal_conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal conv: x (B,S,din), w (K,din), tap by tap in x's
+    dtype."""
+    k = w.shape[0]
+    pad = F.pad(x, (0, 0, k - 1, 0))
+    out = torch.zeros_like(x)
+    for i in range(k):
+        out = out + pad[:, i: i + x.shape[1]] * w[i].to(x.dtype)
+    return out
+
+
+class Mamba(nn.Module):
+    """The reference's ``init_mamba`` / ``mamba_train`` (``forward``, the
+    full scan) / ``mamba_decode`` (``decode``, one step over the
+    (conv, ssm) state).  The scan runs in float32.  ``a_log`` stays float32
+    (see the module docstring); the other weights are in the compute
+    dtype."""
+
+    def __init__(self, cfg: ArchConfig, gen: torch.Generator, device,
+                 dtype: torch.dtype):
+        super().__init__()
+        self.cfg = cfg
+        mm = cfg.mamba
+        d = cfg.d_model
+        din = mm.expand * d
+        r = _dt_rank(cfg)
+        self.win = _param(normal(gen, (d, 2 * din), d ** -0.5, device, dtype))
+        self.conv = _param(normal(gen, (mm.d_conv, din), 0.2, device, dtype))
+        self.wx = _param(normal(gen, (din, r + 2 * mm.d_state), din ** -0.5,
+                                device, dtype))
+        self.wdt = _param(normal(gen, (r, din), r ** -0.5, device, dtype))
+        u = torch.rand(din, generator=gen, dtype=torch.float32, device=device)
+        self.dt_bias = _param(torch.log(torch.expm1(
+            (u * 0.1).clamp(min=1e-3))).to(dtype))
+        self.a_log = _param(torch.log(torch.arange(
+            1, mm.d_state + 1, dtype=torch.float32, device=device)).expand(
+                din, mm.d_state).contiguous())
+        self.d_skip = _param(torch.ones(din, dtype=dtype, device=device))
+        self.wout = _param(normal(gen, (din, d), din ** -0.5, device, dtype))
+
+    def _ssm_inputs(self, xin: torch.Tensor, a_log: torch.Tensor):
+        """xin (...,din) after the conv → (da, dbx, C) of the recurrence
+        h = da * h + dbx, y = h·C: da and dbx (...,din,N) float32.  The
+        recurrence runs as one fused multiply-add (``addcmul``), as XLA
+        compiles the reference's."""
+        mm = self.cfg.mamba
+        r = _dt_rank(self.cfg)
+        dt_r, bmat, cmat = (xin @ self.wx).split([r, mm.d_state, mm.d_state],
+                                                 dim=-1)
+        delta = softplus(dt_r @ self.wdt + self.dt_bias.to(xin.dtype))
+        a = -torch.exp(a_log)
+        da = torch.exp(delta.to(torch.float32)[..., None] * a)
+        # delta * xin in float32: XLA drops the bf16 rounding of a product
+        # that is cast to float32 at once (a bf16 product is exact there)
+        dbx = (delta.to(torch.float32) * xin.to(torch.float32))[..., None] \
+            * bmat.to(torch.float32)[..., None, :]
+        return da, dbx, cmat.to(torch.float32)
+
+    def _out(self, y: torch.Tensor, xin: torch.Tensor,
+             z: torch.Tensor) -> torch.Tensor:
+        y = y.to(xin.dtype) + xin * self.d_skip.to(xin.dtype)
+        return (y * silu(z)) @ self.wout
+
+    def forward(self, x: torch.Tensor, stacked: bool = False) -> torch.Tensor:
+        """mamba_train: x (B,S,d) → (B,S,d).  ``stacked``: the layer is in
+        the reference's scanned stack, whose forward rounds ``a_log`` to
+        the compute dtype first (so ``a = -exp(a_log)`` is computed in
+        it)."""
+        xin, z = (x @ self.win).chunk(2, dim=-1)
+        xin = silu(_causal_conv(xin, self.conv))
+        a_log = self.a_log.to(x.dtype) if stacked else self.a_log
+        da, dbx, cmat = self._ssm_inputs(xin, a_log)
+        b, s = x.shape[:2]
+        h = torch.zeros(da.shape[0], *da.shape[2:], dtype=torch.float32,
+                        device=x.device)
+        ys = []
+        for i in range(s):
+            h = torch.addcmul(dbx[:, i], da[:, i], h)
+            ys.append(torch.einsum("bdn,bn->bd", h, cmat[:, i]))
+        del da, dbx
+        return self._out(torch.stack(ys, dim=1), xin, z)
+
+    def decode(self, x: torch.Tensor, conv_state: torch.Tensor,
+               ssm_state: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor,
+                                                 torch.Tensor]:
+        """mamba_decode: x (B,1,d), conv_state (B,K-1,din), ssm_state
+        (B,din,N) float32 → (out (B,1,d), new conv state, new ssm state)."""
+        xin, z = (x[:, 0] @ self.win).chunk(2, dim=-1)
+        window = torch.cat([conv_state, xin[:, None]], dim=1)   # (B,K,din)
+        xin = silu(torch.einsum("bkd,kd->bd", window, self.conv))
+        da, dbx, cmat = self._ssm_inputs(xin, self.a_log)
+        h = torch.addcmul(dbx, da, ssm_state)
+        y = torch.einsum("bdn,bn->bd", h, cmat)
+        return self._out(y, xin, z)[:, None], window[:, 1:], h

@@ -1,10 +1,12 @@
-"""Serve a dense LM with batched requests: prefill, then greedy decode.
+"""Serve an LM with batched requests: prefill, then greedy decode.
 
-Counterpart of the reference's ``examples/serve_lm.py`` loop: the ragged
-prompts are teacher-forced through ``decode_step`` together (pad token 0
-past a prompt's end, as the reference feeds it), then every request decodes
-greedily.  On the card each decode step runs the hand-written decode
-attention kernel once per layer.
+Counterpart of the reference's ``examples/serve_lm.py`` loop (which serves
+reduced jamba, so that its cache holds attention KV and Mamba conv/ssm
+state): the ragged prompts are teacher-forced through ``decode_step``
+together (pad token 0 past a prompt's end, as the reference feeds it), then
+every request decodes greedily.  On the card each decode step runs the
+hand-written decode attention kernel once per attention layer (none for
+MLA or Mamba layers).
 
 The serving workload is defined once, here: ``BATCH`` requests with prompt
 lengths drawn from ``SEED`` in ``PROMPT_LENS``, ``N_NEW`` new tokens each,
@@ -14,8 +16,12 @@ import it.  Run on the card:
 
     PYTHONPATH=src python -m repro_torch.serve_lm [--arch llama3.2-3b]
 
-It prints one JSON line: prefill and decode tokens/s, the median decode
-step, the kernel's launches and the peak device memory.
+``--arch`` takes any configuration the port runs, at full depth: one 80 GB
+card holds deepseek-v2-lite-16b and falcon-mamba-7b whole, not
+phi3.5-moe-42b-a6.6b or jamba-v0.1-52b (``chip_smoke.py`` phase 6b serves
+those at 16 of their 32 layers).  It prints one JSON line: prefill and
+decode tokens/s, the median decode step, the kernel's launches and the peak
+device memory.
 """
 from __future__ import annotations
 

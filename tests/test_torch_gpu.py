@@ -578,14 +578,48 @@ def test_reduced_decode_step_on_card_matches_the_cpu(dev):
     assert serve(card, prompts, 6, 32)["tokens"] == serve(cpu, prompts, 6, 32)["tokens"]
 
 
+@pytest.mark.parametrize("arch", ["jamba-v0.1-52b", "deepseek-v2-lite-16b"])
+def test_reduced_family_on_card_matches_the_cpu(dev, arch):
+    """Reduced jamba (Mamba, attention through the kernel, MoE) and
+    deepseek (MLA, MoE, a dense prefix layer), the same weights on both
+    devices, float32: the forward's logits and decode_step's logits and
+    caches within 2e-4 over steps that fill the cache past its end, and one
+    decode_attention launch per attention layer and step."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models.lm import CausalLM
+    cfg = reduced(get_config(arch))
+    cpu = CausalLM(cfg, device="cpu", seed=4)
+    card = CausalLM(cfg, device=dev, seed=4)
+    card.load_state_dict(cpu.state_dict())
+    toks = torch.from_numpy(np.random.default_rng(4).integers(0, cfg.vocab, (3, 12)))
+    torch.testing.assert_close(card.logits_fn(card.forward(toks.to(dev))).cpu(),
+                               cpu.logits_fn(cpu.forward(toks)),
+                               rtol=2e-4, atol=2e-4)
+    c_cpu, c_card = cpu.init_cache(3, 8), card.init_cache(3, 8)
+    build.reset_launch_counts()
+    for i in range(12):
+        lg_cpu, c_cpu = cpu.decode_step(c_cpu, toks[:, i:i + 1])
+        lg_card, c_card = card.decode_step(c_card, toks[:, i:i + 1].to(dev))
+        torch.testing.assert_close(lg_card.cpu(), lg_cpu, rtol=2e-4, atol=2e-4)
+    n_attn = sum(k.mixer == "attn" for k in card.plan)
+    assert n_attn == (2 if arch.startswith("jamba") else 0)
+    assert build.launch_counts()["decode_attention"] == 12 * n_attn
+    for a, b in zip(c_card["layers"], c_cpu["layers"]):
+        assert set(a) == set(b)
+        for key in a:
+            torch.testing.assert_close(a[key].cpu(), b[key], rtol=2e-4, atol=2e-4)
+
+
 # the main path's decode shapes: (B, H, KVH, D, S, lengths) — the server's
 # call, decode_32k's cache, float32 group 7 (run in float32 below as well),
-# and batch 1 over a full 32,768-row cache
+# batch 1 over a full 32,768-row cache, and the call of phi3.5-moe and
+# jamba (group 4)
 MAIN_DECODE = {
     "server": (8, 24, 8, 128, 8192, [122, 545, 300, 64, 576, 400, 190, 257]),
     "decode_32k": (4, 24, 8, 128, 32768, [32768, 32769, 1, 20000]),
     "group7": (4, 28, 4, 64, 1536, [0, 1, 1000, 1537]),
     "batch1_32k": (1, 24, 8, 128, 32768, [32768]),
+    "group4": (8, 32, 8, 128, 8192, [347, 392, 190, 109, 73, 189, 178, 154]),
 }
 
 

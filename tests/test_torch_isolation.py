@@ -28,6 +28,10 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
         "repro_torch.core.kernel_backend, repro_torch.data.tpch_queries, "
         "repro_torch.kernels.ops, repro_torch.sql, repro_torch.optimizer, "
         "repro_torch.data.clickbench, repro_torch.configs, "
+        "repro_torch.configs.phi35_moe_42b, "
+        "repro_torch.configs.deepseek_v2_lite_16b, "
+        "repro_torch.configs.falcon_mamba_7b, "
+        "repro_torch.configs.jamba_v01_52b, "
         "repro_torch.kernels.decode_attention, repro_torch.models.layers, "
         "repro_torch.models.lm, repro_torch.models.convert, "
         "repro_torch.serve_lm, repro_torch.substrait, "

@@ -1,5 +1,8 @@
 """The port's LM stack (dense family) against the JAX package, on the CPU.
 
+The MoE, MLA, Mamba and hybrid families are held in
+``test_torch_lm_families.py``.
+
 The same parameters (the reference's ``init_params`` tree, with its norm
 weights and biases perturbed so that they matter, carried across with
 ``params_from_numpy``) and the same tokens go through both packages.
@@ -91,7 +94,8 @@ def test_dense_configs_equal_the_reference(arch):
 def test_shape_set_and_registry():
     assert [dataclasses.asdict(s) for s in configs.LM_SHAPES] == \
         [dataclasses.asdict(s) for s in ref_base.LM_SHAPES]
-    assert sorted(configs.all_configs()) == sorted(DENSE)
+    assert sorted(configs.all_configs()) == \
+        sorted(set(ref_base.all_configs()) - set(configs.NOT_PORTED))
 
 
 @pytest.mark.parametrize("arch", configs.NOT_PORTED)
@@ -117,15 +121,13 @@ def test_layer_plan_matches_reference(arch):
     assert lm._period_len(cfg) == rlm._period_len(ref_cfg)
 
 
-@pytest.mark.parametrize("arch", configs.NOT_PORTED)
-def test_param_count_refuses_other_families(arch):
-    with pytest.raises(NotImplementedError, match="not ported"):
-        _port_cfg(ref_get_config(arch)).param_count()
-
-
-def test_causal_lm_refuses_other_block_kinds():
-    moe = ref_base.MoECfg(n_experts=4, top_k=2, expert_d_ff=64)
-    cfg = dataclasses.replace(reduced(get_config("llama3.2-3b")), moe=moe)
+@pytest.mark.parametrize("field,value", [("enc_layers", 2),
+                                         ("n_img_tiles", 2)])
+def test_causal_lm_refuses_other_block_kinds(field, value):
+    """The encoder (whisper) and the image-token prefix (llava) are not
+    ported: a config with either is refused."""
+    cfg = dataclasses.replace(reduced(get_config("llama3.2-3b")),
+                              **{field: value})
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         lm.CausalLM(cfg, device="cpu")
 

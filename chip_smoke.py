@@ -210,6 +210,7 @@ from pathlib import Path
 import numpy as np
 
 ROOT = Path(__file__).resolve().parent
+T_START = time.perf_counter()
 SEED = 19920101
 SF = 1.0
 
@@ -218,6 +219,8 @@ SF = 1.0
 # stands for the scalar integer and compare work these kernels do
 HBM_BYTES_PER_S = 3.35e12
 SCALAR_OPS_PER_S = 67e12
+# and the dense bf16 rate of its tensor cores, for a decode step's products
+BF16_OPS_PER_S = 989e12
 
 
 def _hits(filter=0, probe=0, agg=0, expand=0, topk=0) -> dict:
@@ -324,6 +327,8 @@ PATH_KERNELS = {
 # query's line prints
 DIST_SHARDS = 4
 DIST_FAULT_SHARDS = 8
+# warm runs of the generic (no-kernel) TPC-H sweep, which no kernel row reads
+DIST_GENERIC_WARM_RUNS = 1
 DIST_RTOL = 2e-5
 STRAGGLE_S = 2.0
 DIST_TIMERS = ("compute", "exchange", "compile", "other", "total")
@@ -365,13 +370,15 @@ LOGPROB_LIMIT = 0.25
 
 # phase 6b: the MoE, MLA and Mamba families at full width, one card.  Each
 # config's layers served in bf16 (the depth cut: phi3.5-moe and jamba take
-# 83.7 and 103.1 GB at full depth; jamba's cut keeps whole periods of 8)
-# and in the float32 check (under 60 GB of float32 weights: deepseek's
-# dense prefix layer plus 8, jamba one period)
+# 83.7 and 103.1 GB at full depth; jamba's cut keeps whole periods of 8;
+# deepseek-v2-lite and falcon-mamba, whole on the card, are cut to 9 of 27
+# and 16 of 64 layers for the script's clock) and in the float32 check
+# (under 60 GB of float32 weights: deepseek's dense prefix layer plus 8,
+# jamba one period)
 FAMILY_LAYERS = {
     "phi3.5-moe-42b-a6.6b": (16, 8),
-    "deepseek-v2-lite-16b": (27, 9),
-    "falcon-mamba-7b": (64, 64),
+    "deepseek-v2-lite-16b": (9, 9),
+    "falcon-mamba-7b": (16, 16),
     "jamba-v0.1-52b": (16, 8),
 }
 # max |delta log-softmax| between teacher-forced decode and the forward in
@@ -395,9 +402,36 @@ ROUTE_TIE = 1e-4
 # 0.4271 (NVIDIA H100 80GB HBM3, 700 W), over LOGPROB_LIMIT: the
 # reference's forward rounds its causal conv tap by tap in bf16 where its
 # decode step sums the taps in float32, and 64 layers add it up.  So the
-# phase reads it and does not hold it; the float32 check at all 64 layers
-# holds the family's math, and each served token is held against a
-# teacher-forced re-run
+# phase reads it and does not hold it; the float32 check holds the
+# family's math, and each served token is held against a teacher-forced
+# re-run
+
+# phase 6c: whisper-medium (24 + 24 layers) and llava-next-mistral-7b (32)
+# at full width and depth, one card.  llava's forward takes a full image
+# prefix (16 tiles x 576 patches) and a LLAVA_PROMPT-token prompt; its
+# float32 decode-vs-forward check runs the text-only backbone (an empty
+# image prefix) at LLAVA_CHECK_LAYERS layers (7 GB of float32 layers).
+# whisper's bf16 decode-vs-forward is held against LOGPROB_LIMIT: it read
+# 0.0482 at 24 + 24 layers (8.6e-6 in float32; NVIDIA H100 80GB HBM3,
+# 700 W)
+LLAVA_PROMPT = 256
+LLAVA_CHECK_LAYERS = 8
+
+# phase 6d: the train step.  (a) train_lm's reference workload (the
+# example's 200 steps, batch 8, 128 tokens; its loss must fall by more than
+# 0.2); (b) llama3.2-3b at full width and depth in bf16 with float32
+# masters and moments, TRAIN_FULL = (batch, tokens, steps) on one repeated
+# batch from train_lm's stream; (c) one float32 step of llama3.2-3b at full
+# width with TRAIN_CHECK_LAYERS layers, TRAIN_CHECK = (batch, tokens), on
+# the card (TF32 off) against the same step on the CPU from the same
+# masters: the loss, the gradient norm and each gradient leaf (relative to
+# its norm) within TRAIN_CPU_LIMITS: about twice the first readings (loss
+# 7.7e-8, gradient norm 0, worst leaf 4.26e-6, ``blocks.1.attn.wk``; NVIDIA
+# H100 80GB HBM3, 700 W), two float32 ulps where the reading was 0
+TRAIN_FULL = (2, 1024, 4)
+TRAIN_CHECK_LAYERS = 2
+TRAIN_CHECK = (2, 128)
+TRAIN_CPU_LIMITS = {"loss": 1.6e-7, "grad_norm": 2.4e-7, "grad_leaf": 9e-6}
 
 
 def emit(obj) -> None:
@@ -958,9 +992,10 @@ def check_decode_attention(rng, dev) -> dict:
     query and 8 KV heads of 128, an 8192-row bf16 cache, ragged lengths in
     64-576); decode_32k's 32,768-row cache, a float32 group-7 case with
     length 0, batch 1 over a full 32,768-row cache (the fewest (row, KV
-    head) units, so the most splits) and phase 6b's call of phi3.5-moe and
+    head) units, so the most splits), phase 6b's call of phi3.5-moe and
     jamba (32 query and 8 KV heads: group 4, the largest a block takes
-    whole) go under ``other_shapes``."""
+    whole) and phase 6c's call of whisper-medium (16 query and 16 KV heads
+    of 64: group 1) go under ``other_shapes``."""
     lengths = [int(x) for x in rng.integers(64, 577, 8)]
     main = _decode_case(8, 24, 8, 128, 8192, lengths, "bfloat16",
                         "the server's batch", rng, dev)
@@ -974,7 +1009,11 @@ def check_decode_attention(rng, dev) -> dict:
                           [int(x) for x in rng.integers(64, 577, 8)],
                           "bfloat16", "phi3.5-moe's and jamba's call, group 4",
                           rng, dev)
-    return {**main, "other_shapes": [long, f32, one, group4]}
+    whisper = _decode_case(8, 16, 16, 64, 8192,
+                           [int(x) for x in rng.integers(64, 577, 8)],
+                           "bfloat16", "whisper-medium's decoder "
+                           "self-attention, group 1, D=64", rng, dev)
+    return {**main, "other_shapes": [long, f32, one, group4, whisper]}
 
 
 # phase 3's checks, in order; each runs in a process of its own
@@ -2151,7 +2190,7 @@ def run_distributed(card: str, dev, tpch_tables: dict, tpch_db: dict,
     eng, result["load_s"]["tpch_generic"] = dist(tpch_db, use_kernels=False)
     build.reset_launch_counts()
     result["tpch_generic"] = sweep(eng, tpch_plans, tpch_want, "generic",
-                                   WARM_RUNS)
+                                   DIST_GENERIC_WARM_RUNS)
     launched = {k: n for k, n in build.launch_counts().items() if n}
     if launched:
         raise AssertionError(f"the generic tier launched kernels: {launched}")
@@ -2510,8 +2549,11 @@ def _decode_vs_forward(cfg, seed: int, dev, limit: float = LOGPROB_LIMIT,
     a model and LM_CHECK tokens drawn from ``seed``: max |delta log-softmax|
     within ``limit``, greedy tokens by ``_greedy_check``.  With MoE layers,
     over the positions before a row's first token that the two paths route
-    to other experts (``_held_positions``).  ``hold=False`` only reads the
-    error (and whether it is within ``limit``)."""
+    to other experts (``_held_positions``).  An encoder-decoder takes
+    standard normal frames from the same seed (the decode cache holds their
+    encoding), a VLM an empty image prefix (the text-only backbone).
+    ``hold=False`` only reads the error (and whether it is within
+    ``limit``)."""
     import contextlib
     import torch
     from repro_torch.models.lm import CausalLM
@@ -2520,14 +2562,22 @@ def _decode_vs_forward(cfg, seed: int, dev, limit: float = LOGPROB_LIMIT,
     b, s = LM_CHECK
     rng = np.random.default_rng(seed)
     toks = torch.from_numpy(rng.integers(0, vocab, (b, s))).to(dev)
+    extra = {}
+    if cfg.enc_layers:
+        extra["frames"] = torch.from_numpy(rng.standard_normal(
+            (b, cfg.enc_seq, cfg.d_model), np.float32)).to(dev)
+    if cfg.n_img_tiles:
+        extra["img_embeds"] = torch.zeros((b, 0, cfg.d_model), device=dev)
 
     def log():
         return _RouterLog() if cfg.moe else contextlib.nullcontext()
 
     with torch.inference_mode():
         with log() as fwd_log:
-            forward = model.logits_fn(model.forward(toks))[..., :vocab]
+            forward = model.logits_fn(model.forward(toks, **extra))[..., :vocab]
         cache = model.init_cache(b, s)
+        if cfg.enc_layers:
+            cache["enc_out"] = model.encode(extra["frames"])
         steps = []
         with log() as dec_log:
             for i in range(s):
@@ -2618,6 +2668,7 @@ def run_lm_serve(card: str, dev) -> dict:
     out = {"card": card, "requests": BATCH,
            "prompt_lengths": [len(p) for p in prompts], "n_new": N_NEW,
            "max_cache": MAX_CACHE,
+           **step_bound(model, BATCH),
            "kv_cache_bytes": cfg.n_layers * 2 * BATCH * MAX_CACHE
            * cfg.n_kv_heads * cfg.resolved_head_dim * 2,
            **serve_metrics(result),
@@ -2646,11 +2697,12 @@ def run_lm_serve(card: str, dev) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def _teacher_forced_argmax(model, prompts, tokens, vocab: int):
+def _teacher_forced_argmax(model, prompts, tokens, vocab: int, frames=None):
     """The argmax of decode_step's logits where ``serve`` chose each of
     ``tokens``: the padded prompts (token 0 past a prompt's end, as serve
     feeds them) then the generated tokens, teacher-forced through a new
-    cache of the same batch and rows."""
+    cache of the same batch and rows (an encoder-decoder's holding the
+    encoding of ``frames``)."""
     import torch
     from repro_torch.serve_lm import MAX_CACHE
     dev = model.device
@@ -2664,11 +2716,99 @@ def _teacher_forced_argmax(model, prompts, tokens, vocab: int):
     cache = model.init_cache(batch, MAX_CACHE)
     chosen = []
     with torch.inference_mode():
+        if model.cfg.enc_layers:
+            cache["enc_out"] = model.encode(torch.as_tensor(frames, device=dev))
         for i in range(seq.shape[1]):
             logits, cache = model.decode_step(cache, seq_t[:, i:i + 1])
             if i >= maxp - 1:
                 chosen.append(logits[:, 0, :vocab].argmax(-1))
     return torch.stack(chosen, dim=1).cpu().numpy()
+
+
+def _init_row(model, cfg, t0: float) -> dict:
+    import torch
+    torch.cuda.synchronize()
+    return {"arch": cfg.name, "layers": cfg.n_layers,
+            "enc_layers": cfg.enc_layers, "d_model": cfg.d_model,
+            "dtype": str(model.dtype), "init_s": time.perf_counter() - t0,
+            "weight_bytes": sum(p.numel() * p.element_size()
+                                for p in model.parameters()),
+            "params": sum(p.numel() for p in model.parameters())}
+
+
+def _serve_held(model, prompts, what: str, frames=None) -> tuple:
+    """``serve_lm``'s workload on ``model``, the main path, its launches
+    counted from 0: ``decode_attention`` must launch once per attention
+    layer and step, the tokens lie in ``[0, vocab)``, and every served
+    token must equal the argmax of a teacher-forced ``decode_step`` re-run
+    over the same sequence in the same batch (the decode step is
+    deterministic: the MoE combine adds in a fixed order).  → (serve's
+    result, the launches, the peak device bytes, the attention layers)."""
+    import torch
+    from repro_torch.kernels import build
+    from repro_torch.serve_lm import BATCH, MAX_CACHE, N_NEW, serve
+    dev, vocab = model.device, model.cfg.vocab
+    n_attn = sum(k.mixer == "attn" for k in model.plan)
+    torch.cuda.reset_peak_memory_stats(dev)
+    build.reset_launch_counts()
+    result = serve(model, prompts, N_NEW, MAX_CACHE, frames)
+    launches = build.launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    steps = result["prefill_steps"] + N_NEW
+    if launches["decode_attention"] != n_attn * steps:
+        raise AssertionError(f"{what}: decode_attention launched "
+                             f"{launches['decode_attention']} times over "
+                             f"{steps} steps of {n_attn} attention layers")
+    tokens = np.asarray(result["tokens"])
+    if tokens.shape != (BATCH, N_NEW) or tokens.min() < 0 or tokens.max() >= vocab:
+        raise AssertionError(f"{what} served tokens: shape {tokens.shape}, "
+                             f"range {tokens.min()}..{tokens.max()}")
+    again = _teacher_forced_argmax(model, prompts, tokens, vocab, frames)
+    differ = int((again != tokens).sum())
+    if differ:
+        raise AssertionError(f"{what}: {differ} served tokens differ from "
+                             f"the teacher-forced decode re-run")
+    return result, launches, peak, n_attn
+
+
+def step_bound(model, batch: int) -> dict:
+    """The least time one decode step of ``batch`` rows could take: the
+    bytes it must read (every decoder parameter, the float32 head or the
+    tied embedding it is, but not an untied input embedding, of which a
+    step reads a row a request, nor an encoder-decoder's encoder and
+    position tables; and the cached encoder output, once for the keys and
+    once for the values of each cross-attention) over the memory rate,
+    against its products (2 flops a parameter a row, and the
+    cross-attention's keys and values of every encoder row) over the
+    dense bf16 rate.  The KV cache rows, a few hundred a request, are
+    left out."""
+    cfg = model.cfg
+    skip = ("enc.", "enc_pos", "dec_pos") + (
+        ("embed",) if model.head is not None else ())
+    params = [p for name, p in model.named_parameters()
+              if not name.startswith(skip)]
+    nbytes = sum(p.numel() * p.element_size() for p in params)
+    ops = 2 * batch * sum(p.numel() for p in params)
+    if cfg.enc_layers:
+        kv = cfg.n_kv_heads * cfg.resolved_head_dim
+        rows = batch * cfg.enc_seq
+        nbytes += 2 * cfg.n_layers * rows * cfg.d_model * model.dtype.itemsize
+        ops += 2 * cfg.n_layers * rows * cfg.d_model * 2 * kv
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / BF16_OPS_PER_S * 1e3
+    return {"step_bound_ms": max(t_bytes, t_ops),
+            "step_bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "step_bytes": int(nbytes), "step_ops": int(ops)}
+
+
+def _serve_row(result: dict, prompts, model) -> dict:
+    from repro_torch.serve_lm import BATCH, MAX_CACHE, N_NEW, serve_metrics
+    return {"requests": BATCH, "prompt_lengths": [len(p) for p in prompts],
+            "n_new": N_NEW, "max_cache": MAX_CACHE, **serve_metrics(result),
+            "prefill_s": result["prefill_s"], "decode_s": result["decode_s"],
+            "prefill_steps": result["prefill_steps"], "decode_steps": N_NEW,
+            "served_tokens_held": BATCH * N_NEW,
+            **step_bound(model, BATCH)}
 
 
 def run_lm_family(card: str, dev, arch: str) -> dict:
@@ -2681,10 +2821,8 @@ def run_lm_family(card: str, dev, arch: str) -> dict:
     import dataclasses
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.kernels import build
     from repro_torch.models.lm import CausalLM
-    from repro_torch.serve_lm import (BATCH, MAX_CACHE, N_NEW, SEED, serve,
-                                      serve_metrics, workload_prompts)
+    from repro_torch.serve_lm import SEED, workload_prompts
 
     t_phase = time.perf_counter()
     full = get_config(arch)
@@ -2712,51 +2850,18 @@ def run_lm_family(card: str, dev, arch: str) -> dict:
 
     t0 = time.perf_counter()
     model = CausalLM(cfg, device=dev, seed=SEED)
-    torch.cuda.synchronize()
-    init = {"arch": arch, "layers": served, "of_layers": full.n_layers,
-            "d_model": cfg.d_model, "dtype": str(model.dtype),
-            "init_s": time.perf_counter() - t0,
-            "weight_bytes": sum(p.numel() * p.element_size()
-                                for p in model.parameters()),
-            "params": sum(p.numel() for p in model.parameters())}
+    init = {**_init_row(model, cfg, t0), "of_layers": full.n_layers}
     emit({"phase": "lm_family_init", **init})
-    vocab = cfg.vocab
-    prompts = workload_prompts(vocab)
-    n_attn = sum(k.mixer == "attn" for k in model.plan)
-
-    # serving: this family's main path, counted from 0
-    torch.cuda.reset_peak_memory_stats(dev)
-    build.reset_launch_counts()
-    result = serve(model, prompts, N_NEW, MAX_CACHE)
-    launches = build.launch_counts()
-    peak = torch.cuda.max_memory_allocated(dev)
-    steps = result["prefill_steps"] + N_NEW
-    if launches["decode_attention"] != n_attn * steps:
-        raise AssertionError(f"{arch}: decode_attention launched "
-                             f"{launches['decode_attention']} times over "
-                             f"{steps} steps of {n_attn} attention layers")
-    tokens = np.asarray(result["tokens"])
-    if tokens.shape != (BATCH, N_NEW) or tokens.min() < 0 or tokens.max() >= vocab:
-        raise AssertionError(f"{arch} served tokens: shape {tokens.shape}, "
-                             f"range {tokens.min()}..{tokens.max()}")
-    maxp = result["prefill_steps"]
-    again = _teacher_forced_argmax(model, prompts, tokens, vocab)
-    differ = int((again != tokens).sum())
-    if differ:
-        raise AssertionError(f"{arch}: {differ} served tokens differ from "
-                             f"the teacher-forced decode re-run")
+    prompts = workload_prompts(cfg.vocab)
+    result, launches, peak, n_attn = _serve_held(model, prompts, arch)
+    row = _serve_row(result, prompts, model)
     del model
     torch.cuda.empty_cache()
     out = {"card": card, "arch": arch, "layers": served,
-           "of_layers": full.n_layers, "requests": BATCH,
-           "prompt_lengths": [len(p) for p in prompts], "n_new": N_NEW,
-           "max_cache": MAX_CACHE, **serve_metrics(result),
-           "prefill_s": result["prefill_s"], "decode_s": result["decode_s"],
-           "prefill_steps": maxp, "decode_steps": N_NEW,
+           "of_layers": full.n_layers, **row,
            "attn_layers": n_attn,
            "decode_attention_launches": launches["decode_attention"],
            "peak_memory_bytes": peak,
-           "served_tokens_held": int(tokens.size),
            "seconds": time.perf_counter() - t_phase}
     emit({"phase": "lm_family_serve", **out})
     print(f"lm_family {arch} ({served} of {full.n_layers} layers, "
@@ -2779,6 +2884,306 @@ def run_lm_families(card: str, dev) -> dict:
     for arch in FAMILY_LAYERS:
         out[arch] = run_lm_family(card, dev, arch)
         torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 6c: the encoder-decoder and VLM families (whisper-medium,
+# llava-next-mistral-7b) at full width and depth
+# ---------------------------------------------------------------------------
+
+
+def run_whisper(card: str, dev) -> dict:
+    """whisper-medium at full depth (24 + 24 layers): (a) float32
+    teacher-forced decode_step (decode attention through the kernel,
+    cross-attention over the cached encoder output) against the forward,
+    held within LOGPROB_LIMIT_F32; (b) the same in bf16 within
+    LOGPROB_LIMIT; (c) serve_lm's
+    workload with random frames from its seed, 24 decode_attention
+    launches a step, every served token held against a teacher-forced
+    re-run."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import CausalLM
+    from repro_torch.serve_lm import SEED, workload_frames, workload_prompts
+
+    t_phase = time.perf_counter()
+    cfg = get_config("whisper-medium")
+    checks = []
+    for c, limit in ((dataclasses.replace(cfg, dtype="float32"),
+                      LOGPROB_LIMIT_F32), (cfg, LOGPROB_LIMIT)):
+        checks.append(_decode_vs_forward(c, SEED, dev, limit))
+        emit({"phase": "lm_encdec_decode_vs_forward", "arch": cfg.name,
+              "dtype": c.dtype, "layers": c.n_layers,
+              "enc_layers": c.enc_layers, "limit": limit, **checks[-1]})
+        torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    model = CausalLM(cfg, device=dev, seed=SEED)
+    init = _init_row(model, cfg, t0)
+    emit({"phase": "lm_encdec_init", **init})
+    prompts = workload_prompts(cfg.vocab)
+    frames = workload_frames(cfg)
+    result, launches, peak, n_attn = _serve_held(model, prompts, cfg.name,
+                                                 frames)
+    row = _serve_row(result, prompts, model)
+    del model
+    torch.cuda.empty_cache()
+    out = {"card": card, "arch": cfg.name, **row,
+           "frames": list(frames.shape), "attn_layers": n_attn,
+           "decode_attention_launches": launches["decode_attention"],
+           "launches_per_step": launches["decode_attention"]
+           / (result["prefill_steps"] + len(result["step_s"])),
+           "peak_memory_bytes": peak,
+           "seconds": time.perf_counter() - t_phase}
+    emit({"phase": "lm_encdec_serve", **out})
+    print(f"lm_encdec {cfg.name} ({cfg.enc_layers} + {cfg.n_layers} layers, "
+          f"{init['weight_bytes']} weight bytes, {init['params']} params): "
+          f"float32 decode vs forward {checks[0]['max_abs_logprob_err']:.3g}, "
+          f"bf16 {checks[1]['max_abs_logprob_err']:.4g}; prefill "
+          f"{out['prefill_tokens_per_s']:.1f} tokens/s, decode "
+          f"{out['decode_tokens_per_s']:.1f} tokens/s, median step "
+          f"{out['median_step_ms']:.3f} ms, peak memory {peak} bytes, "
+          f"decode_attention {launches['decode_attention']} launches "
+          f"({out['launches_per_step']:.0f} a step), {out['seconds']:.1f} s "
+          f"on {card}", flush=True)
+    return {**out, "decode_vs_forward": checks, "init": init,
+            "launches": launches}
+
+
+def run_llava(card: str, dev) -> dict:
+    """llava-next-mistral-7b at full depth (32 layers): (a) bf16 forward
+    and prefill with a full image prefix (16 x 576 random patch rows) and
+    an LLAVA_PROMPT-token prompt: finite logits, prefill equal to the
+    forward's last row, the prefix's hidden states bit for bit the same
+    when the text tokens change; (b) float32 decode-vs-forward on the
+    text-only backbone (an empty image prefix) at LLAVA_CHECK_LAYERS
+    layers within LOGPROB_LIMIT_F32; (c) serve_lm's workload over tokens
+    only (the reference's decode_step), 32 decode_attention launches a
+    step, every served token held against a teacher-forced re-run."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import CausalLM
+    from repro_torch.serve_lm import SEED, workload_prompts
+
+    t_phase = time.perf_counter()
+    cfg = get_config("llava-next-mistral-7b")
+    vocab = cfg.vocab
+    t0 = time.perf_counter()
+    model = CausalLM(cfg, device=dev, seed=SEED)
+    init = _init_row(model, cfg, t0)
+    emit({"phase": "lm_vlm_init", **init})
+
+    # (a) the image prefix
+    n_img = cfg.n_img_tiles * cfg.img_patches
+    rng = np.random.default_rng(SEED)
+    img = torch.from_numpy(rng.standard_normal((1, n_img, cfg.d_model),
+                                               np.float32)).to(dev)
+    toks = torch.from_numpy(rng.integers(0, vocab, (1, LLAVA_PROMPT))).to(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        hidden = model.forward(toks, img_embeds=img)
+        torch.cuda.synchronize()
+        forward_s = time.perf_counter() - t0
+        last = model.logits_fn(hidden[:, -1:])
+        finite = bool(torch.isfinite(model.logits_fn(hidden)[..., :vocab]).all())
+        t0 = time.perf_counter()
+        pre = model.prefill(toks, img_embeds=img)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        other = model.forward((toks + 1) % vocab, img_embeds=img)
+    peak = torch.cuda.max_memory_allocated(dev)
+    if hidden.shape != (1, n_img + LLAVA_PROMPT, cfg.d_model) or not finite:
+        raise AssertionError(f"{cfg.name}: forward {tuple(hidden.shape)}, "
+                             f"finite logits {finite}")
+    if not torch.equal(pre, last):
+        raise AssertionError(f"{cfg.name}: prefill is "
+                             f"{float((pre - last).abs().max()):.3g} off the "
+                             f"forward's last row")
+    if not torch.equal(hidden[:, :n_img], other[:, :n_img]):
+        raise AssertionError(f"{cfg.name}: the image rows' hidden states "
+                             f"moved with the text tokens")
+    if torch.equal(hidden[:, n_img:], other[:, n_img:]):
+        raise AssertionError(f"{cfg.name}: the text rows did not move")
+    prefix = {"image_rows": n_img, "prompt_tokens": LLAVA_PROMPT,
+              "forward_s": forward_s, "prefill_s": prefill_s,
+              "peak_memory_bytes": peak}
+    emit({"phase": "lm_vlm_prefix", "arch": cfg.name, **prefix})
+    del hidden, other, pre, last
+
+    # (c) serving, tokens only
+    prompts = workload_prompts(vocab)
+    result, launches, serve_peak, n_attn = _serve_held(model, prompts,
+                                                       cfg.name)
+    row = _serve_row(result, prompts, model)
+    del model
+    torch.cuda.empty_cache()
+
+    # (b) float32 decode vs forward, text-only backbone, cut depth
+    f32 = dataclasses.replace(cfg, n_layers=LLAVA_CHECK_LAYERS, dtype="float32")
+    check = _decode_vs_forward(f32, SEED, dev, LOGPROB_LIMIT_F32)
+    emit({"phase": "lm_vlm_decode_vs_forward", "arch": cfg.name,
+          "dtype": "float32", "layers": LLAVA_CHECK_LAYERS,
+          "limit": LOGPROB_LIMIT_F32, **check})
+    torch.cuda.empty_cache()
+    out = {"card": card, "arch": cfg.name, **row,
+           "attn_layers": n_attn,
+           "decode_attention_launches": launches["decode_attention"],
+           "launches_per_step": launches["decode_attention"]
+           / (result["prefill_steps"] + len(result["step_s"])),
+           "peak_memory_bytes": serve_peak,
+           "seconds": time.perf_counter() - t_phase}
+    emit({"phase": "lm_vlm_serve", **out})
+    print(f"lm_vlm {cfg.name} ({cfg.n_layers} layers, {init['weight_bytes']} "
+          f"weight bytes): forward of {n_img} image rows + {LLAVA_PROMPT} "
+          f"tokens {forward_s:.3f} s, prefill {prefill_s:.3f} s, peak "
+          f"{peak} bytes; float32 decode vs forward "
+          f"{check['max_abs_logprob_err']:.3g} ({LLAVA_CHECK_LAYERS} layers); "
+          f"serve: decode {out['decode_tokens_per_s']:.1f} tokens/s, median "
+          f"step {out['median_step_ms']:.3f} ms, decode_attention "
+          f"{launches['decode_attention']} launches "
+          f"({out['launches_per_step']:.0f} a step), {out['seconds']:.1f} s "
+          f"on {card}", flush=True)
+    return {**out, "prefix": prefix, "decode_vs_forward": [check],
+            "init": init, "launches": launches}
+
+
+def run_lm_encdec(card: str, dev) -> dict:
+    """Phase 6c: whisper-medium, then llava-next-mistral-7b, the card's
+    memory freed between them."""
+    import torch
+    out = {"whisper-medium": run_whisper(card, dev)}
+    torch.cuda.empty_cache()
+    out["llava-next-mistral-7b"] = run_llava(card, dev)
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 6d: the train step
+# ---------------------------------------------------------------------------
+
+
+def run_training(card: str, dev) -> dict:
+    """Phase 6d: (a) train_lm's reference workload; (b) llama3.2-3b at full
+    width and depth, bf16 compute with float32 masters and moments,
+    TRAIN_FULL steps on one repeated batch: finite, falling loss and a
+    finite gradient norm; (c) one float32 step of llama3.2-3b at full width
+    with TRAIN_CHECK_LAYERS layers, on the card (TF32 off) against the CPU
+    from the same masters, within TRAIN_CPU_LIMITS."""
+    import dataclasses
+    import math
+    import torch
+    from repro_torch import train_lm
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+    from repro_torch.serve_lm import SEED
+    from repro_torch.training.optimizer import OptConfig
+    from repro_torch.training.train_step import (init_train_state,
+                                                 make_train_step)
+
+    out = {"card": card}
+    t_phase = time.perf_counter()
+    build.reset_launch_counts()
+
+    # (a) the reference example's workload
+    ex = train_lm.run(device=dev, log=lambda *_: None)
+    losses = ex.pop("losses")
+    ex["loss_every_20"] = losses[::20] + [losses[-1]]
+    if not ex["improved"] or ex["checkpoint_max_abs_diff"] != 0:
+        raise AssertionError(f"train_lm: loss {ex['first_loss']:.4f} → "
+                             f"{ex['last_loss']:.4f}, checkpoint max |delta| "
+                             f"{ex['checkpoint_max_abs_diff']}")
+    out["train_lm"] = ex
+    emit({"phase": "train_lm", **ex})
+    torch.cuda.empty_cache()
+
+    # (b) llama3.2-3b at full width and depth, bf16 with float32 masters
+    cfg = get_config("llama3.2-3b")
+    batch_n, seq, n_steps = TRAIN_FULL
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    state = init_train_state(cfg, device=dev, seed=SEED)
+    step = make_train_step(cfg, OptConfig(lr=1e-3, warmup_steps=1,
+                                          total_steps=n_steps), device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    batch = next(train_lm.synthetic_stream(cfg.vocab, batch_n, seq, seed=SEED,
+                                           device=dev))
+    rows = []
+    for _ in range(n_steps):
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        loss, gnorm = float(metrics["loss"]), float(metrics["grad_norm"])
+        rows.append({"loss": loss, "grad_norm": gnorm,
+                     "seconds": time.perf_counter() - t0})
+    peak = torch.cuda.max_memory_allocated(dev)
+    full = {"arch": cfg.name, "layers": cfg.n_layers, "batch": batch_n,
+            "tokens": seq, "steps": rows, "init_s": init_s,
+            "ln_vocab": math.log(cfg.vocab), "peak_memory_bytes": peak,
+            "params": sum(p.numel() for p in state["params"].values())}
+    del state, step, batch, metrics
+    torch.cuda.empty_cache()
+    if not (all(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"])
+                for r in rows) and rows[-1]["loss"] < rows[0]["loss"]):
+        raise AssertionError(f"{cfg.name} train steps: {rows}")
+    out["llama_full"] = full
+    emit({"phase": "train_full_width", **full})
+
+    # (c) one float32 step, card against the CPU, from the same masters
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    c32 = dataclasses.replace(cfg, n_layers=TRAIN_CHECK_LAYERS, dtype="float32")
+    opt = OptConfig(warmup_steps=1, total_steps=10)
+    cpu_state = init_train_state(c32, device="cpu", seed=SEED)
+    b = next(train_lm.synthetic_stream(c32.vocab, *TRAIN_CHECK, seed=SEED))
+    got = {}
+    for name, device in (("card", dev), ("cpu", torch.device("cpu"))):
+        t0 = time.perf_counter()
+        st = {"params": {k: v.to(device, copy=True)
+                         for k, v in cpu_state["params"].items()}}
+        st["opt"] = {"mu": {k: torch.zeros_like(v) for k, v in st["params"].items()},
+                     "nu": {k: torch.zeros_like(v) for k, v in st["params"].items()},
+                     "step": torch.zeros((), dtype=torch.int32, device=device)}
+        fn = make_train_step(c32, opt, device=device)
+        _, metrics = fn(st, {k: v.to(device) for k, v in b.items()},
+                        keep_grads=True)
+        got[name] = {"loss": float(metrics["loss"]),
+                     "grad_norm": float(metrics["grad_norm"]),
+                     "grads": {k: g.cpu() for k, g in metrics["grads"].items()},
+                     "seconds": time.perf_counter() - t0}
+        del st, fn, metrics
+        torch.cuda.empty_cache()
+    readings = {key: abs(got["card"][key] - got["cpu"][key]) / abs(got["cpu"][key])
+                for key in ("loss", "grad_norm")}
+    leaf = {k: float((got["card"]["grads"][k] - g).norm() / g.norm())
+            for k, g in got["cpu"]["grads"].items() if float(g.norm()) > 0}
+    readings["grad_leaf"] = max(leaf.values())
+    check = {"arch": cfg.name, "layers": TRAIN_CHECK_LAYERS,
+             "batch": TRAIN_CHECK[0], "tokens": TRAIN_CHECK[1],
+             "loss": got["cpu"]["loss"], "grad_norm": got["cpu"]["grad_norm"],
+             "card_s": got["card"]["seconds"], "cpu_s": got["cpu"]["seconds"],
+             "readings": readings, "limits": TRAIN_CPU_LIMITS,
+             "worst_leaf": max(leaf, key=leaf.get)}
+    out["card_vs_cpu"] = check
+    emit({"phase": "train_card_vs_cpu", **check})
+    over = {k: v for k, v in readings.items() if not v <= TRAIN_CPU_LIMITS[k]}
+    if over:
+        raise AssertionError(f"train step, card against CPU: {over} over "
+                             f"{TRAIN_CPU_LIMITS}")
+    out["launches"] = build.launch_counts()
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"train: train_lm {ex['first_loss']:.3f} → {ex['last_loss']:.3f} at "
+          f"{ex['steps_per_s']:.2f} steps/s; {cfg.name} full width, "
+          f"{batch_n} x {seq} tokens: loss {rows[0]['loss']:.4f} → "
+          f"{rows[-1]['loss']:.4f} (ln vocab {full['ln_vocab']:.4f}), step "
+          f"{statistics.median(r['seconds'] for r in rows):.3f} s, peak "
+          f"{peak} bytes; float32 card vs CPU {readings}; "
+          f"{out['seconds']:.1f} s on {card}", flush=True)
     return out
 
 
@@ -2812,28 +3217,51 @@ def main() -> int:
         print(build.build_log, file=sys.stderr)
 
     dev = torch.device("cuda", 0)
+
+    seconds = report["phase_seconds"] = {"build": report["build"]["seconds"]}
+
+    def phase(name: str, fn, *args):
+        """Run one phase, record and print its seconds."""
+        t = time.perf_counter()
+        result = fn(*args)
+        seconds[name] = time.perf_counter() - t
+        print(f"phase {name}: {seconds[name]:.1f} s", flush=True)
+        return result
+
+    t3 = time.perf_counter()
     kernels = []
     for check in PHASE3:
         row = run_check(check)
         emit({"phase": "kernel", **row})
         kernels.append(row)
+    seconds["3_kernels"] = time.perf_counter() - t3
+    print(f"phase 3_kernels: {seconds['3_kernels']:.1f} s", flush=True)
 
-    report["main_path"], tables, tpch_db = run_main_path()
-    report["compiled_path"] = run_compiled_path(tables)
-    report["clickbench"], cb_table, cb_db = run_clickbench()
-    report["front_door"] = run_front_door(
-        card, tables, tpch_db, cb_table, cb_db,
-        report["compiled_path"].pop("sql_runs"))
-    report["analyze"] = run_analyze(card, tables, tpch_db, cb_table, cb_db)
-    report["distributed"] = run_distributed(card, dev, tables, tpch_db,
-                                            cb_table, cb_db)
+    report["main_path"], tables, tpch_db = phase("4_tpch", run_main_path)
+    report["compiled_path"] = phase("4b_compiled", run_compiled_path, tables)
+    report["clickbench"], cb_table, cb_db = phase("5_clickbench",
+                                                  run_clickbench)
+    report["front_door"] = phase(
+        "5b_front_door", run_front_door, card, tables, tpch_db, cb_table,
+        cb_db, report["compiled_path"].pop("sql_runs"))
+    report["analyze"] = phase("5c_analyze", run_analyze, card, tables,
+                              tpch_db, cb_table, cb_db)
+    report["distributed"] = phase("5d_distributed", run_distributed, card,
+                                  dev, tables, tpch_db, cb_table, cb_db)
     del tables, tpch_db, cb_table, cb_db
     torch.cuda.empty_cache()
-    report["launch"] = run_launch(card, dev)
+    report["launch"] = phase("5e_launch", run_launch, card, dev)
     torch.cuda.empty_cache()
-    report["lm_serve"] = run_lm_serve(card, dev)
+    report["lm_serve"] = phase("6_lm_serve", run_lm_serve, card, dev)
     torch.cuda.empty_cache()
-    report["lm_families"] = run_lm_families(card, dev)
+    report["lm_families"] = phase("6b_lm_families", run_lm_families, card,
+                                  dev)
+    torch.cuda.empty_cache()
+    report["lm_encdec"] = phase("6c_lm_encdec", run_lm_encdec, card, dev)
+    torch.cuda.empty_cache()
+    report["training"] = phase("6d_training", run_training, card, dev)
+    seconds["total"] = time.perf_counter() - T_START
+    emit({"phase": "seconds", **seconds})
     by_path = {"tpch": report["main_path"]["launches"],
                "tpch_compiled": report["compiled_path"]["launches"],
                "clickbench": report["clickbench"]["launches"],
@@ -2843,7 +3271,10 @@ def main() -> int:
                "sql_fragments": report["launch"]["launches"],
                "lm_serve": report["lm_serve"]["launches"],
                **{f"lm_serve/{arch}": r["launches"]
-                  for arch, r in report["lm_families"].items()}}
+                  for arch, r in report["lm_families"].items()},
+               **{f"lm_serve/{arch}": r["launches"]
+                  for arch, r in report["lm_encdec"].items()},
+               "training": report["training"]["launches"]}
     line = []
     for row in kernels:
         name = row["name"]

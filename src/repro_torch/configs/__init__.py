@@ -1,5 +1,5 @@
 """Architecture configs — counterpart of ``repro/configs``."""
 from .base import (  # noqa: F401
-    ArchConfig, LM_SHAPES, MambaCfg, MLACfg, MoECfg, NOT_PORTED, Shape,
+    ArchConfig, LM_SHAPES, MambaCfg, MLACfg, MoECfg, Shape,
     all_configs, get_config, reduced, register,
 )

@@ -3,9 +3,8 @@
 The reference's ``ArchConfig`` with its MoE, Mamba and MLA sub-configs, the
 shape set, the registry, ``reduced()``, ``param_count()`` and
 ``active_param_count()`` (pure Python, kept here so the port imports nothing
-of ``repro``): a configuration is the same record in both packages.
-``get_config`` of the encoder-decoder and VLM configurations, whose families
-the port does not run yet, raises ``NotImplementedError``.
+of ``repro``): a configuration is the same record in both packages, and the
+registry holds the same ten.
 """
 from __future__ import annotations
 
@@ -183,18 +182,9 @@ def register(cfg: ArchConfig) -> ArchConfig:
     return cfg
 
 
-# configurations of the reference whose families (encoder-decoder, VLM) the
-# port does not run yet
-NOT_PORTED = ("llava-next-mistral-7b", "whisper-medium")
-
-
 def get_config(name: str) -> ArchConfig:
     if not _REGISTRY:
         _load_all()
-    if name in NOT_PORTED:
-        raise NotImplementedError(
-            f"{name}: the encoder-decoder and VLM families are not ported to "
-            f"PyTorch yet; they are queued in ROADMAP.md (queue 1, LM stack)")
     return _REGISTRY[name]
 
 
@@ -207,7 +197,8 @@ def all_configs() -> Dict[str, ArchConfig]:
 def _load_all() -> None:
     from . import (  # noqa: F401
         deepseek_v2_lite_16b, falcon_mamba_7b, jamba_v01_52b, llama32_3b,
-        phi35_moe_42b, qwen2_72b, qwen2_7b, qwen3_4b,
+        llava_next_mistral_7b, phi35_moe_42b, qwen2_72b, qwen2_7b, qwen3_4b,
+        whisper_medium,
     )
 
 

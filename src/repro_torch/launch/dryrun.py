@@ -153,14 +153,12 @@ SQL_CELLS = ("q3_sf100", "q3pt_sf100", "q1_sf100", "q3c_sf100",
 
 
 def all_cells():
-    """Every (arch, shape) cell: each model configuration's shapes (the
-    configurations whose family is not ported yet with shape ``*``), then
+    """Every (arch, shape) cell: each model configuration's shapes, then
     the SQL fragments."""
-    from ..configs.base import NOT_PORTED, all_configs
+    from ..configs.base import all_configs
     cells = []
     for name, cfg in sorted(all_configs().items()):
         cells += [(name, s.name) for s in cfg.shapes()]
-    cells += [(name, "*") for name in NOT_PORTED]
     cells += [(SQL_ARCH, s) for s in SQL_CELLS]
     return cells
 

@@ -6,9 +6,12 @@ The JAX package keeps a model's parameters as a nested dict: ``embed``,
 ``(n_periods,)`` axis: one block per period for uniform configurations,
 jamba's 8).  A block holds ``ln1``, its mixer (``attn`` for GQA and MLA,
 ``mamba``) and, unless its ffn is ``none``, ``ln2`` and ``ffn`` (an MLP, or
-an MoE with an MLP ``shared``).  ``params_from_numpy`` takes that tree
-with numpy leaves (``jax.tree.map(np.asarray, params)``) and copies it into
-a ``CausalLM``, so that both packages compute the same function; every key
+an MoE with an MLP ``shared``).  An encoder-decoder adds ``enc_pos``,
+``enc`` (encoder layers stacked on a leading ``(enc_layers,)`` axis),
+``dec_pos`` and ``cross`` (one cross-attention per decoder layer, stacked
+on ``(n_layers,)``).  ``params_from_numpy`` takes that tree with numpy
+leaves (``jax.tree.map(np.asarray, params)``) and copies it into a
+``CausalLM``, so that both packages compute the same function; every key
 set must be the model's exactly.
 """
 from __future__ import annotations
@@ -50,15 +53,24 @@ def params_from_numpy(cfg: ArchConfig, tree: Dict, device=None,
     compute ``dtype`` (the config's by default), holding the parameters of
     the reference's tree.  Matmul weights and norms are cast once to the
     compute dtype (the reference casts at every use: the same values); the
-    embedding, an untied head, the MoE router and Mamba's ``a_log`` stay
-    float32."""
+    embedding, an untied head, whisper's position tables, the MoE router
+    and Mamba's ``a_log`` stay float32.  ``dtype=torch.float32`` gives a
+    training run's float32 masters, every leaf as the tree holds it,
+    whatever the config's compute dtype
+    (``training.train_step.init_train_state(model=...)`` takes them)."""
     model = CausalLM(cfg, device=device, dtype=dtype)
+    top = {"embed", "final_norm", "prefix", "stack"}
+    if model.head is not None:
+        top.add("head")
+    if cfg.enc_layers:
+        top |= {"enc_pos", "enc", "dec_pos", "cross"}
+    if set(tree) != top:
+        raise ValueError(f"tree: keys {sorted(tree)}, the model has "
+                         f"{sorted(top)}")
     _copy(model.embed, tree["embed"], "embed")
     _copy(model.final_norm, tree["final_norm"], "final_norm")
     if model.head is not None:
         _copy(model.head, tree["head"], "head")
-    elif "head" in tree:
-        raise ValueError("tied embeddings, but the tree has a head")
     blocks = list(model.blocks)
     n_prefix = cfg.first_dense_layers
     if len(tree["prefix"]) != n_prefix:
@@ -77,6 +89,17 @@ def params_from_numpy(cfg: ArchConfig, tree: Dict, device=None,
             _load_module(blocks[n_prefix + i * period + j],
                          _period_slice(stack[f"sub{j}"], i),
                          f"stack/sub{j}/{i}")
+    if cfg.enc_layers:
+        _copy(model.enc_pos, tree["enc_pos"], "enc_pos")
+        _copy(model.dec_pos, tree["dec_pos"], "dec_pos")
+        for name, layers, n in (("enc", model.enc, cfg.enc_layers),
+                                ("cross", model.cross, cfg.n_layers)):
+            if _leading(tree[name]) != {n}:
+                raise ValueError(f"{name}: {sorted(_leading(tree[name]))} "
+                                 f"stacked layers, the model has {n}")
+            for i in range(n):
+                _load_module(layers[i], _period_slice(tree[name], i),
+                             f"{name}/{i}")
     return model
 
 
@@ -84,3 +107,9 @@ def _period_slice(tree: Dict, i: int) -> Dict:
     """Entry ``i`` of every leaf of a stacked (n_periods, ...) subtree."""
     return {k: _period_slice(v, i) if isinstance(v, dict) else v[i]
             for k, v in tree.items()}
+
+
+def _leading(tree: Dict) -> set:
+    """The leading (stacked) sizes of a subtree's leaves."""
+    return set().union(*(_leading(v) if isinstance(v, dict)
+                         else {len(v)} for v in tree.values()))

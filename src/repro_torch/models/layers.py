@@ -30,6 +30,7 @@ Differences from the reference, none of which changes a result:
 """
 from __future__ import annotations
 
+import math
 from typing import Optional, Tuple
 
 import torch
@@ -56,8 +57,8 @@ def _param(t: torch.Tensor) -> nn.Parameter:
 
 # The reference's activations, op by op in the input's dtype: XLA rounds
 # every step of jax.nn.silu (x * logistic(x), the logistic as
-# 1 / (1 + exp(-x))) and of jax.nn.softplus (logaddexp(x, 0)) to bf16,
-# where F.silu and F.softplus round once.
+# 1 / (1 + exp(-x))), of jax.nn.softplus (logaddexp(x, 0)) and of
+# jax.nn.gelu to bf16, where F.silu, F.softplus and F.gelu round once.
 
 
 def silu(x: torch.Tensor) -> torch.Tensor:
@@ -66,6 +67,16 @@ def silu(x: torch.Tensor) -> torch.Tensor:
 
 def softplus(x: torch.Tensor) -> torch.Tensor:
     return x.clamp(min=0) + torch.log1p(torch.exp(-x.abs()))
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu``'s tanh approximation, ``x * 0.5 * (1 + tanh(c * (x +
+    0.044715 * x**3))))`` step by step in x's dtype, its two constants
+    rounded to that dtype first (``x**3`` is ``(x * x) * x``)."""
+    k = torch.tensor(0.044715, dtype=x.dtype, device=x.device)
+    c = torch.tensor(math.sqrt(2 / math.pi), dtype=x.dtype, device=x.device)
+    inner = x + k * (x * x * x)
+    return x * (0.5 * (1.0 + torch.tanh(c * inner)))
 
 
 # ---------------------------------------------------------------------------
@@ -267,7 +278,8 @@ class Attention(nn.Module):
 
 class MLP(nn.Module):
     """The reference's ``init_mlp`` / ``mlp``: swiglu (wg, wu, wd) or gelu
-    (w1, w2; the tanh approximation, ``jax.nn.gelu``'s default)."""
+    (w1, w2; the tanh approximation, ``jax.nn.gelu``'s default, as
+    ``gelu`` computes it)."""
 
     def __init__(self, cfg: ArchConfig, gen: torch.Generator, device,
                  dtype: torch.dtype, d_ff: Optional[int] = None):
@@ -285,7 +297,7 @@ class MLP(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.kind == "gelu":
-            return F.gelu(x @ self.w1, approximate="tanh") @ self.w2
+            return gelu(x @ self.w1) @ self.w2
         g = silu(x @ self.wg)
         return (g * (x @ self.wu)) @ self.wd
 

@@ -3,15 +3,20 @@
 A configuration's layers are planned as (mixer, ffn) block kinds, mixer in
 {attn, mla, mamba} and ffn in {mlp, moe, none}: the dense, MoE (phi3.5-moe),
 MLA + MoE (deepseek-v2-lite, whose layer 0 is a dense prefix block),
-Mamba (falcon-mamba) and hybrid (jamba: periods of 8 layers) families.
-``CausalLM`` holds a ``ModuleList`` of blocks where the reference has an
-unrolled prefix and a ``lax.scan`` over stacked periods; the layers run in
-the same order with the same arithmetic.  Entry points: ``forward`` (→
-final hidden states), ``logits_fn``, ``prefill``, ``init_cache`` and
-``decode_step``.
+Mamba (falcon-mamba) and hybrid (jamba: periods of 8 layers) families, the
+encoder-decoder (whisper: a non-causal encoder over precomputed frame
+embeddings, learned decoder positions, cross-attention after every decoder
+block) and the VLM (llava: precomputed patch embeddings prepended to the
+tokens).  ``CausalLM`` holds a ``ModuleList`` of blocks where the reference
+has an unrolled prefix and a ``lax.scan`` over stacked periods; the layers
+run in the same order with the same arithmetic.  Entry points: ``forward``
+(→ final hidden states), ``encode``, ``logits_fn``, ``prefill``,
+``loss_fn``, ``init_cache`` and ``decode_step``.
 
-A configuration with an encoder (whisper) or image tokens (llava) raises
-``NotImplementedError`` (ROADMAP.md, queue 1, LM stack).
+Where autograd records (a training step), each scan step of the reference
+(one period, or a decoder block and its cross-attention) is recomputed in
+the backward pass (``torch.utils.checkpoint``), as the reference's
+``jax.checkpoint`` does.
 
 The model runs on the current CUDA device unless ``device="cpu"`` is
 passed, and raises without a card.  On the card its decode attention is the
@@ -26,6 +31,7 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
 from . import layers as L
@@ -153,6 +159,77 @@ class Block(nn.Module):
         return self._ffn(x, x32, stacked=False)
 
 
+def _norm(cfg: ArchConfig, device, dtype: torch.dtype) -> nn.Parameter:
+    return nn.Parameter(torch.ones(cfg.d_model, dtype=dtype, device=device),
+                        requires_grad=False)
+
+
+class CrossAttention(nn.Module):
+    """The reference's ``_cross_attend`` (whisper): ``ln`` and an ``attn``
+    of the GQA layer's weights; queries from the decoder's stream, keys and
+    values projected from the encoder output at every call (the reference
+    recomputes them every decode step too), no RoPE, non-causal blockwise
+    attention over every encoder row."""
+
+    def __init__(self, cfg: ArchConfig, gen: torch.Generator, device,
+                 dtype: torch.dtype):
+        super().__init__()
+        self.cfg = cfg
+        self.ln = _norm(cfg, device, dtype)
+        self.attn = L.Attention(cfg, gen, device, dtype)
+
+    def forward(self, x: torch.Tensor, x32: Optional[torch.Tensor],
+                enc_out: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """x (B,S,d) (``x32``: its float32 value before rounding, which the
+        norm reads), enc_out (B,S_enc,d) → (x + attention, its float32
+        value before rounding)."""
+        cfg, ap = self.cfg, self.attn
+        h = L.rmsnorm(x if x32 is None else x32, self.ln, cfg.norm_eps,
+                      x.dtype)
+        b, s, _ = x.shape
+        se, hd = enc_out.shape[1], cfg.resolved_head_dim
+        q = (h @ ap.wq).reshape(b, s, cfg.n_heads, hd)
+        k = (enc_out @ ap.wk).reshape(b, se, cfg.n_kv_heads, hd)
+        v = (enc_out @ ap.wv).reshape(b, se, cfg.n_kv_heads, hd)
+        o = L.blockwise_attention(q, k, v, causal=False)
+        return _add(x, o.reshape(b, s, cfg.n_heads * hd) @ ap.wo)
+
+
+class EncoderLayer(nn.Module):
+    """One layer of the reference's ``_encoder``: ``ln1``, a non-causal
+    ``attn``, ``ln2``, a (gelu) ``ffn``."""
+
+    def __init__(self, cfg: ArchConfig, gen: torch.Generator, device,
+                 dtype: torch.dtype):
+        super().__init__()
+        self.eps = cfg.norm_eps
+        self.ln1 = _norm(cfg, device, dtype)
+        self.attn = L.Attention(cfg, gen, device, dtype)
+        self.ln2 = _norm(cfg, device, dtype)
+        self.ffn = L.MLP(cfg, gen, device, dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """x (B,S_enc,d), the scan's carry (rounded) → the next carry.  The
+        second norm reads the fresh residual sum unrounded (``_add``)."""
+        x, x32 = _add(x, self.attn(L.rmsnorm(x, self.ln1, self.eps),
+                                   causal=False))
+        h = L.rmsnorm(x32, self.ln2, self.eps, x.dtype)
+        return _add(x, self.ffn(h))[0]
+
+
+def _run(fn, i: int, x: torch.Tensor, *args) -> torch.Tensor:
+    """``fn(i, x, *args)``, recomputed in the backward pass where autograd
+    records the stream (a training step: the reference's
+    ``jax.checkpoint`` of a scan step)."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return checkpoint(fn, i, x, *args, use_reentrant=False)
+    return fn(i, x, *args)
+
+
+# rows of whisper's learned decoder positions (the reference's table)
+DEC_POS_ROWS = 32768
+
+
 class CausalLM(nn.Module):
     """A causal LM with random weights at the reference's scales.
 
@@ -169,10 +246,6 @@ class CausalLM(nn.Module):
                  dtype: Optional[torch.dtype] = None):
         super().__init__()
         plan = layer_plan(cfg)
-        if cfg.enc_layers or cfg.n_img_tiles:
-            raise NotImplementedError(
-                f"{cfg.name}: the encoder and image-token prefix are not "
-                f"ported; see ROADMAP.md (queue 1, LM stack)")
         self.cfg = cfg
         self.device = torch.device(device) if device is not None \
             else default_device()
@@ -193,15 +266,73 @@ class CausalLM(nn.Module):
             f32), requires_grad=False)
         self.blocks = nn.ModuleList(
             Block(cfg, kind, gen, dev, self.dtype) for kind in plan)
+        if cfg.enc_layers:          # whisper: encoder, positions, cross-attn
+            self.enc_pos = nn.Parameter(L.normal(
+                gen, (cfg.enc_seq, cfg.d_model), 0.02, dev, f32),
+                requires_grad=False)
+            self.enc = nn.ModuleList(EncoderLayer(cfg, gen, dev, self.dtype)
+                                     for _ in range(cfg.enc_layers))
+            self.dec_pos = nn.Parameter(L.normal(
+                gen, (DEC_POS_ROWS, cfg.d_model), 0.02, dev, f32),
+                requires_grad=False)
+            self.cross = nn.ModuleList(CrossAttention(cfg, gen, dev, self.dtype)
+                                       for _ in plan)
 
     # -- forward / prefill -------------------------------------------------
 
-    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        """tokens (B,S) → final hidden states (B,S,d)."""
-        x, x32 = self.embed[tokens].to(self.dtype), None
+    def encode(self, frames: torch.Tensor) -> torch.Tensor:
+        """The reference's ``_encoder``: frames (B,enc_seq,d) precomputed
+        frame embeddings → encoder output (B,enc_seq,d) in the compute
+        dtype."""
+        x = frames.to(self.dtype) + self.enc_pos.to(self.dtype)
+        for layer in self.enc:
+            x = layer(x)
+        return x
+
+    def forward(self, tokens: torch.Tensor,
+                img_embeds: Optional[torch.Tensor] = None,
+                frames: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """tokens (B,S) → final hidden states (B,S_total,d).  A VLM takes
+        ``img_embeds`` (B,P,d), prepended to the token embeddings
+        (S_total = P + S); an encoder-decoder takes ``frames``
+        (B,enc_seq,d) for its encoder."""
+        cfg = self.cfg
+        x = self.embed[tokens].to(self.dtype)
+        if cfg.n_img_tiles:
+            if img_embeds is None:
+                raise ValueError(f"{cfg.name} needs img_embeds")
+            x = torch.cat([img_embeds.to(self.dtype), x], dim=1)
+        enc_out = None
+        if cfg.enc_layers:
+            if frames is None:
+                raise ValueError(f"{cfg.name} needs frames")
+            enc_out = self.encode(frames)
+            x = x + self.dec_pos[:x.shape[1]].to(self.dtype)
         for i, block in enumerate(self.blocks):
-            x, x32 = block(x, self._x32(i, x32), stacked=i >= self.n_prefix)
-        return L.rmsnorm(x, self.final_norm, self.cfg.norm_eps)
+            if i < self.n_prefix:     # each prefix block alone
+                x = block(x)[0]
+            elif enc_out is not None:
+                x = _run(self._decoder_layer, i, x, enc_out)
+            elif (i - self.n_prefix) % self.period == 0:
+                x = _run(self._period, i, x)
+        return L.rmsnorm(x, self.final_norm, cfg.norm_eps)
+
+    def _period(self, first: int, x: torch.Tensor) -> torch.Tensor:
+        """One scan step of the reference's stack: the period of blocks
+        from ``first``, its carry in and out rounded; inside the period a
+        block's first norm reads the previous block's float32 sum."""
+        x32 = None
+        for i in range(first, first + self.period):
+            x, x32 = self.blocks[i](x, x32, stacked=True)
+        return x
+
+    def _decoder_layer(self, i: int, x: torch.Tensor,
+                       enc_out: torch.Tensor) -> torch.Tensor:
+        """One scan step of the reference's encoder-decoder stack: block
+        ``i``, then its cross-attention, whose norm reads the block's
+        float32 sum (the next block reads the rounded carry)."""
+        x, x32 = self.blocks[i](x, None, stacked=True)
+        return self.cross[i](x, x32, enc_out)[0]
 
     def _x32(self, i: int, x32: torch.Tensor) -> Optional[torch.Tensor]:
         """What block ``i`` reads of the previous block's float32 sum: the
@@ -220,9 +351,28 @@ class CausalLM(nn.Module):
             logits[..., self.cfg.vocab:] = L.NEG_INF
         return logits
 
-    def prefill(self, tokens: torch.Tensor) -> torch.Tensor:
+    def prefill(self, tokens: torch.Tensor,
+                img_embeds: Optional[torch.Tensor] = None,
+                frames: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Full forward → logits of the last position (B,1,V)."""
-        return self.logits_fn(self.forward(tokens)[:, -1:])
+        return self.logits_fn(self.forward(tokens, img_embeds, frames)[:, -1:])
+
+    def loss_fn(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """The reference's ``loss_fn``: next-token cross entropy of
+        ``batch["tokens"]`` against ``batch["targets"]`` (B,S), float32
+        log-softmax, targets < 0 ignored, the sum over the kept positions
+        divided by their count (at least 1).  A VLM's image positions
+        carry no loss."""
+        tokens = batch["tokens"]
+        hidden = self.forward(tokens, batch.get("img_embeds"),
+                              batch.get("frames"))
+        if self.cfg.n_img_tiles:
+            hidden = hidden[:, -tokens.shape[1]:]
+        logp = torch.log_softmax(self.logits_fn(hidden), dim=-1)
+        targets = batch["targets"]
+        mask = targets >= 0
+        nll = -logp.gather(-1, targets.clamp(min=0)[..., None])[..., 0]
+        return (nll * mask).sum() / mask.sum().clamp(min=1)
 
     # -- serving -----------------------------------------------------------
 
@@ -249,11 +399,17 @@ class CausalLM(nn.Module):
         """{"layers": one dict per layer — {"k", "v"} (B,max_len,KVH,hd)
         for attention, {"ckv", "krope"} (B,max_len,rank / rope_dim) for MLA,
         {"conv" (B,K-1,din), "ssm" (B,din,N) float32} for Mamba —, "length":
-        (B,) int32 fill}."""
-        return {"layers": [self._block_cache(kind, batch, max_len)
-                           for kind in self.plan],
-                "length": torch.zeros(batch, dtype=torch.int32,
-                                      device=self.device)}
+        (B,) int32 fill; an encoder-decoder's "enc_out" (B,enc_seq,d), zeros
+        until the caller stores ``encode(frames)`` there}."""
+        cache = {"layers": [self._block_cache(kind, batch, max_len)
+                            for kind in self.plan],
+                 "length": torch.zeros(batch, dtype=torch.int32,
+                                       device=self.device)}
+        if self.cfg.enc_layers:
+            cache["enc_out"] = torch.zeros(
+                (batch, self.cfg.enc_seq, self.cfg.d_model), dtype=self.dtype,
+                device=self.device)
+        return cache
 
     def decode_step(self, cache: Dict,
                     tokens: torch.Tensor) -> Tuple[torch.Tensor, Dict]:
@@ -262,9 +418,15 @@ class CausalLM(nn.Module):
         ``length + 1``; the same dict is returned."""
         length = cache["length"]
         x = self.embed[tokens].to(self.dtype)
+        if self.cfg.enc_layers:       # learned positions, clipped to the table
+            row = length.to(torch.int64).clamp(0, DEC_POS_ROWS - 1)
+            x = x + self.dec_pos.to(self.dtype)[row][:, None]
         x32 = None
         for i, (block, c) in enumerate(zip(self.blocks, cache["layers"])):
             x, x32 = block.decode(x, self._x32(i, x32), c, length)
+            if self.cfg.enc_layers:
+                x, x32 = self.cross[i](x, x32, cache["enc_out"])
+                x32 = None            # the next block reads the carry
         x = L.rmsnorm(x, self.final_norm, self.cfg.norm_eps)
         logits = self.logits_fn(x)
         cache["length"] = length + 1

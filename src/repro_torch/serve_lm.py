@@ -16,12 +16,15 @@ import it.  Run on the card:
 
     PYTHONPATH=src python -m repro_torch.serve_lm [--arch llama3.2-3b]
 
-``--arch`` takes any configuration the port runs, at full depth: one 80 GB
-card holds deepseek-v2-lite-16b and falcon-mamba-7b whole, not
-phi3.5-moe-42b-a6.6b or jamba-v0.1-52b (``chip_smoke.py`` phase 6b serves
-those at 16 of their 32 layers).  It prints one JSON line: prefill and
-decode tokens/s, the median decode step, the kernel's launches and the peak
-device memory.
+``--arch`` takes any of the ten configurations, at full depth: one 80 GB
+card holds deepseek-v2-lite-16b, falcon-mamba-7b, whisper-medium and
+llava-next-mistral-7b whole, not phi3.5-moe-42b-a6.6b or jamba-v0.1-52b
+(``chip_smoke.py`` phase 6b serves those at 16 of their 32 layers).  An
+encoder-decoder (whisper) is served with random frame embeddings from
+``SEED`` (``workload_frames``), encoded once before the prefill; a VLM
+(llava) decodes text tokens only, as the reference's ``decode_step`` does.
+It prints one JSON line: prefill and decode tokens/s, the median decode
+step, the kernel's launches and the peak device memory.
 """
 from __future__ import annotations
 
@@ -54,9 +57,11 @@ def _sync(device: torch.device) -> None:
 
 @torch.inference_mode()
 def serve(model: CausalLM, prompts: Sequence[Sequence[int]], n_new: int,
-          max_cache: int) -> Dict:
+          max_cache: int, frames=None) -> Dict:
     """Prefill ``prompts`` (one request each) and decode ``n_new`` greedy
-    tokens per request with a cache of ``max_cache`` rows.
+    tokens per request with a cache of ``max_cache`` rows.  An
+    encoder-decoder needs ``frames`` (B,enc_seq,d), encoded into the
+    cache's ``enc_out`` before the prefill (its time counts as prefill).
 
     → {"tokens": n_new token ids per request, "prefill_s", "decode_s",
     "step_s": host seconds of each decode step (each ends in a device
@@ -74,6 +79,10 @@ def serve(model: CausalLM, prompts: Sequence[Sequence[int]], n_new: int,
 
     _sync(dev)
     t0 = time.perf_counter()
+    if model.cfg.enc_layers:
+        if frames is None:
+            raise ValueError(f"{model.cfg.name} needs frames")
+        cache["enc_out"] = model.encode(torch.as_tensor(frames, device=dev))
     for i in range(maxp):
         last_logits, cache = model.decode_step(cache, toks[i][:, None])
     _sync(dev)
@@ -117,6 +126,13 @@ def workload_prompts(vocab: int):
     return random_prompts(np.random.default_rng(SEED), BATCH, *PROMPT_LENS, vocab)
 
 
+def workload_frames(cfg, batch: int = BATCH) -> np.ndarray:
+    """An encoder-decoder's frame embeddings for the workload's requests:
+    standard normal (batch, enc_seq, d_model) float32 from ``SEED``."""
+    return np.random.default_rng(SEED).standard_normal(
+        (batch, cfg.enc_seq, cfg.d_model), np.float32)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", default=ARCH)
@@ -126,7 +142,8 @@ def main(argv=None) -> int:
     prompts = workload_prompts(cfg.vocab)
     torch.cuda.reset_peak_memory_stats()
     build.reset_launch_counts()
-    result = serve(model, prompts, N_NEW, MAX_CACHE)
+    frames = workload_frames(cfg) if cfg.enc_layers else None
+    result = serve(model, prompts, N_NEW, MAX_CACHE, frames)
     print(json.dumps({
         "arch": cfg.name, "device": torch.cuda.get_device_name(model.device),
         "batch": BATCH, "prompt_lengths": [len(p) for p in prompts],

@@ -610,16 +610,105 @@ def test_reduced_family_on_card_matches_the_cpu(dev, arch):
             torch.testing.assert_close(a[key].cpu(), b[key], rtol=2e-4, atol=2e-4)
 
 
+@pytest.mark.parametrize("arch", ["whisper-medium", "llava-next-mistral-7b"])
+def test_reduced_encdec_and_vlm_on_card_match_the_cpu(dev, arch):
+    """Reduced whisper (the encoder, cross-attention over the cached
+    encoder output, learned positions) and llava (an image prefix), the
+    same weights on both devices, float32: the forward's logits, and
+    decode_step's logits over steps that fill the cache past its end,
+    within 2e-4; one decode_attention launch per layer and step; serve
+    (with frames for whisper) gives the same greedy tokens."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models.lm import CausalLM
+    from repro_torch.serve_lm import serve, workload_frames
+    cfg = reduced(get_config(arch))
+    cpu = CausalLM(cfg, device="cpu", seed=5)
+    card = CausalLM(cfg, device=dev, seed=5)
+    card.load_state_dict(cpu.state_dict())
+    rng = np.random.default_rng(5)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (3, 12)))
+    frames = workload_frames(cfg, 3) if cfg.enc_layers else None
+    extra = {}
+    if cfg.enc_layers:
+        extra["frames"] = torch.from_numpy(frames)
+    if cfg.n_img_tiles:
+        extra["img_embeds"] = torch.from_numpy(rng.standard_normal(
+            (3, cfg.n_img_tiles * cfg.img_patches, cfg.d_model), np.float32))
+    torch.testing.assert_close(
+        card.logits_fn(card.forward(toks.to(dev), **{k: v.to(dev) for k, v
+                                                     in extra.items()})).cpu(),
+        cpu.logits_fn(cpu.forward(toks, **extra)), rtol=2e-4, atol=2e-4)
+    c_cpu, c_card = cpu.init_cache(3, 8), card.init_cache(3, 8)
+    if cfg.enc_layers:
+        c_cpu["enc_out"] = cpu.encode(extra["frames"])
+        c_card["enc_out"] = card.encode(extra["frames"].to(dev))
+    build.reset_launch_counts()
+    for i in range(12):
+        lg_cpu, c_cpu = cpu.decode_step(c_cpu, toks[:, i:i + 1])
+        lg_card, c_card = card.decode_step(c_card, toks[:, i:i + 1].to(dev))
+        torch.testing.assert_close(lg_card.cpu(), lg_cpu, rtol=2e-4, atol=2e-4)
+    assert build.launch_counts()["decode_attention"] == 12 * cfg.n_layers
+    prompts = [list(range(1, n + 1)) for n in (5, 9, 3)]
+    assert serve(card, prompts, 6, 32, frames)["tokens"] == \
+        serve(cpu, prompts, 6, 32, frames)["tokens"]
+
+
+@pytest.mark.parametrize("arch", ["llama3.2-3b", "whisper-medium",
+                                  "jamba-v0.1-52b"])
+def test_reduced_train_step_on_card_matches_the_cpu(dev, arch):
+    """One float32 train step of a reduced config from the same masters on
+    both devices (TF32 off): the loss and the gradient norm within 2e-5,
+    each gradient leaf within 1e-4 of its norm, the new masters within a
+    quarter of the step's learning rate (AdamW's first step divides each
+    gradient element by its magnitude plus 1e-8)."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.train_lm import synthetic_stream
+    from repro_torch.training.optimizer import OptConfig, lr_schedule
+    from repro_torch.training.train_step import (init_train_state,
+                                                 make_train_step)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = reduced(get_config(arch))
+    opt = OptConfig(warmup_steps=1, total_steps=10)
+    batch = next(synthetic_stream(cfg.vocab, 2, 32, seed=6))
+    rng = np.random.default_rng(6)
+    if cfg.enc_layers:
+        batch["frames"] = torch.from_numpy(rng.standard_normal(
+            (2, cfg.enc_seq, cfg.d_model), np.float32))
+    states, metrics, grads = {}, {}, {}
+    cpu_state = init_train_state(cfg, device="cpu", seed=6)
+    for name, device in (("cpu", "cpu"), ("card", dev)):
+        state = {"params": {k: v.clone().to(device)
+                            for k, v in cpu_state["params"].items()}}
+        state["opt"] = {"mu": {k: torch.zeros_like(v) for k, v in state["params"].items()},
+                        "nu": {k: torch.zeros_like(v) for k, v in state["params"].items()},
+                        "step": torch.zeros((), dtype=torch.int32, device=device)}
+        step = make_train_step(cfg, opt, device=device)
+        states[name], metrics[name] = step(
+            state, {k: v.to(device) for k, v in batch.items()}, keep_grads=True)
+        grads[name] = {k: v.cpu() for k, v in metrics[name].pop("grads").items()}
+    for key in ("loss", "grad_norm"):
+        torch.testing.assert_close(metrics["card"][key].cpu(),
+                                   metrics["cpu"][key], rtol=2e-5, atol=0)
+    for k, want in grads["cpu"].items():
+        err = float((grads["card"][k] - want).norm())
+        assert err <= 1e-4 * float(want.norm()) + 1e-12, k
+    lr = float(lr_schedule(opt, torch.tensor(1)))
+    for k, want in states["cpu"]["params"].items():
+        torch.testing.assert_close(states["card"]["params"][k].cpu(), want,
+                                   rtol=1e-6, atol=0.25 * lr)
+
+
 # the main path's decode shapes: (B, H, KVH, D, S, lengths) — the server's
 # call, decode_32k's cache, float32 group 7 (run in float32 below as well),
-# batch 1 over a full 32,768-row cache, and the call of phi3.5-moe and
-# jamba (group 4)
+# batch 1 over a full 32,768-row cache, the call of phi3.5-moe and jamba
+# (group 4) and whisper's decoder self-attention (group 1, D = 64)
 MAIN_DECODE = {
     "server": (8, 24, 8, 128, 8192, [122, 545, 300, 64, 576, 400, 190, 257]),
     "decode_32k": (4, 24, 8, 128, 32768, [32768, 32769, 1, 20000]),
     "group7": (4, 28, 4, 64, 1536, [0, 1, 1000, 1537]),
     "batch1_32k": (1, 24, 8, 128, 32768, [32768]),
     "group4": (8, 32, 8, 128, 8192, [347, 392, 190, 109, 73, 189, 178, 154]),
+    "whisper": (8, 16, 16, 64, 8192, [512, 96, 301, 64, 576, 233, 450, 128]),
 }
 
 

@@ -94,15 +94,7 @@ def test_dense_configs_equal_the_reference(arch):
 def test_shape_set_and_registry():
     assert [dataclasses.asdict(s) for s in configs.LM_SHAPES] == \
         [dataclasses.asdict(s) for s in ref_base.LM_SHAPES]
-    assert sorted(configs.all_configs()) == \
-        sorted(set(ref_base.all_configs()) - set(configs.NOT_PORTED))
-
-
-@pytest.mark.parametrize("arch", configs.NOT_PORTED)
-def test_unported_families_raise(arch):
-    assert arch in ref_base.all_configs()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        get_config(arch)
+    assert sorted(configs.all_configs()) == sorted(ref_base.all_configs())
 
 
 def _port_cfg(ref_cfg):
@@ -119,17 +111,6 @@ def test_layer_plan_matches_reference(arch):
     assert [dataclasses.astuple(k) for k in lm.layer_plan(cfg)] == \
         [dataclasses.astuple(k) for k in rlm.layer_plan(ref_cfg)]
     assert lm._period_len(cfg) == rlm._period_len(ref_cfg)
-
-
-@pytest.mark.parametrize("field,value", [("enc_layers", 2),
-                                         ("n_img_tiles", 2)])
-def test_causal_lm_refuses_other_block_kinds(field, value):
-    """The encoder (whisper) and the image-token prefix (llava) are not
-    ported: a config with either is refused."""
-    cfg = dataclasses.replace(reduced(get_config("llama3.2-3b")),
-                              **{field: value})
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        lm.CausalLM(cfg, device="cpu")
 
 
 def test_causal_lm_needs_a_card_unless_asked_for_the_cpu(monkeypatch):

@@ -189,6 +189,20 @@ nothing of JAX or of the JAX package ``repro``, and:
    the same batch.  It prints weight bytes and params, init
    seconds, prefill and decode tokens/s, the median decode step, the peak
    device memory, the launches and the family's seconds;
+6c. and 6d. drive whisper-medium and llava at full depth, and training
+   (``run_lm_encdec``, ``run_training``: their docstrings say what is held);
+6e. drives the model half of ``launch/``: the dry run of seven model cells
+   on the 16 x 16 mesh (``MODEL_DRY_CELLS``: every kind and family),
+   each shard's program counted on ``meta`` tensors on this machine, one
+   line a record, every count equal to the CPU sweep's
+   (``tests/golden/dryrun_models_pod.json``; where this machine's PyTorch
+   release is another than the one that wrote it, the counts its own
+   backward formulas move within ``model_dryrun.RELEASE_RTOL``); then
+   llama3.2-3b's
+   ``train_4k`` and ``prefill_32k`` shard programs run once for real on the
+   card (pieces drawn from ``serve_lm``'s seed, the collectives returning
+   tensors of their result's shape), each measured peak within
+   ``MODEL_PEAK_RTOL`` of the record's ``resident_bytes_per_chip``;
 7. prints the kernels' JSON line, then as its last line
    ``{"ok": true, "device": {...}}``.
 
@@ -432,6 +446,17 @@ TRAIN_FULL = (2, 1024, 4)
 TRAIN_CHECK_LAYERS = 2
 TRAIN_CHECK = (2, 128)
 TRAIN_CPU_LIMITS = {"loss": 1.6e-7, "grad_norm": 2.4e-7, "grad_leaf": 9e-6}
+# phase 6e: the model dry run's cells held to the CPU sweep's counts, and
+# the shard programs run for real against their predicted peak
+MODEL_DRY_CELLS = (("llama3.2-3b", "train_4k"), ("llama3.2-3b", "decode_32k"),
+                   ("phi3.5-moe-42b-a6.6b", "train_4k"),
+                   ("deepseek-v2-lite-16b", "prefill_32k"),
+                   ("falcon-mamba-7b", "long_500k"),
+                   ("whisper-medium", "prefill_32k"),
+                   ("llava-next-mistral-7b", "prefill_32k"))
+MODEL_DRY_GOLDEN = "tests/golden/dryrun_models_pod.json"
+MODEL_REAL_CELLS = (("llama3.2-3b", "train_4k"), ("llama3.2-3b", "prefill_32k"))
+MODEL_PEAK_RTOL = 0.25
 
 
 def emit(obj) -> None:
@@ -3187,6 +3212,94 @@ def run_training(card: str, dev) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 6e: the model half of launch/ (dry run, then shard programs for real)
+# ---------------------------------------------------------------------------
+
+
+def _model_dry_line(arch: str, shape: str, rec: dict) -> dict:
+    mem = rec["memory"]
+    return {"arch": arch, "shape": shape, "mesh": "16x16",
+            "flops": rec["flops_per_device"],
+            "dot_flops": rec["flops_detail"]["dot_flops_loop_corrected"],
+            "bytes_accessed": rec["bytes_accessed_per_device"],
+            "collective_bytes": rec["collective_bytes_per_device"],
+            "argument_bytes": mem["argument_bytes"],
+            "resident_bytes": mem["resident_bytes_per_chip"],
+            "fits_card": mem["fits_card"], "padded": rec["padded"],
+            "run_s": rec["run_time_s"]}
+
+
+def run_model_launch(card: str, dev) -> dict:
+    """Phase 6e: the model cells' dry run on this machine against the CPU
+    sweep's counts, then llama3.2-3b's train and prefill shard programs on
+    the card against their predicted peak."""
+    import torch
+    from repro_torch.kernels import build
+    from repro_torch.launch import dryrun, model_dryrun
+    from repro_torch.serve_lm import SEED
+
+    t_phase = time.perf_counter()
+    build.reset_launch_counts()
+    golden = json.loads((ROOT / MODEL_DRY_GOLDEN).read_text())
+    release = torch.__version__.split("+")[0]
+    same = release == golden["torch"]
+    dry = {}
+    for arch, shape in MODEL_DRY_CELLS:
+        rec = dryrun.model_record(arch, shape, False)
+        dry[(arch, shape)] = rec
+        got = json.loads(json.dumps(model_dryrun.counts(rec)))
+        want = golden["cells"][f"{arch} {shape}"]
+        emit({"phase": "model_dry", "card": card, "torch": release,
+              "golden_torch": golden["torch"],
+              **_model_dry_line(arch, shape, rec),
+              "bytes_accessed_over_cpu": got["bytes_accessed_per_device"]
+              / want["bytes_accessed_per_device"]})
+        diff = model_dryrun.counts_differ(got, want, same)
+        if diff:
+            raise AssertionError(f"dry run {arch} {shape}: counts differ "
+                                 f"from the CPU sweep's: {diff}")
+    runs = []
+    for arch, shape in MODEL_REAL_CELLS:
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        _, _, cell = dryrun.lower_cell(arch, shape, False, device=dev,
+                                       sample=False, seed=SEED)
+        out = cell.run(None)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t
+        peak = torch.cuda.max_memory_allocated() - base
+        finite = bool(all(torch.isfinite(x).all() for x in
+                          (out if isinstance(out, tuple) else (out,))))
+        del out, cell
+        predicted = dry.get((arch, shape)) or dryrun.model_record(
+            arch, shape, False)
+        pred = predicted["memory"]["resident_bytes_per_chip"]
+        row = {"arch": arch, "shape": shape, "mesh": "16x16",
+               "peak_bytes": peak, "predicted_peak_bytes": pred,
+               "peak_over_predicted": peak / pred, "seconds": seconds,
+               "finite": finite}
+        runs.append(row)
+        emit({"phase": "model_run", "card": card, **row})
+        if abs(peak / pred - 1) > MODEL_PEAK_RTOL:
+            raise AssertionError(f"{arch} {shape}: peak {peak} against the "
+                                 f"predicted {pred} ({peak / pred:.3f})")
+        if not finite:
+            raise AssertionError(f"{arch} {shape}: non-finite outputs")
+    torch.cuda.empty_cache()
+    counts = build.launch_counts()
+    result = {"dry": [_model_dry_line(a, s, r) for (a, s), r in dry.items()],
+              "runs": runs,
+              "launches": {k: counts.get(k, 0) for k in REPLACES},
+              "seconds": time.perf_counter() - t_phase}
+    emit({"phase": "model_launch", "card": card,
+          "seconds": result["seconds"], "launches": result["launches"]})
+    return result
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke.py: src/repro_torch not found beside the script",
@@ -3260,6 +3373,9 @@ def main() -> int:
     report["lm_encdec"] = phase("6c_lm_encdec", run_lm_encdec, card, dev)
     torch.cuda.empty_cache()
     report["training"] = phase("6d_training", run_training, card, dev)
+    torch.cuda.empty_cache()
+    report["model_launch"] = phase("6e_model_launch", run_model_launch, card,
+                                   dev)
     seconds["total"] = time.perf_counter() - T_START
     emit({"phase": "seconds", **seconds})
     by_path = {"tpch": report["main_path"]["launches"],
@@ -3274,7 +3390,8 @@ def main() -> int:
                   for arch, r in report["lm_families"].items()},
                **{f"lm_serve/{arch}": r["launches"]
                   for arch, r in report["lm_encdec"].items()},
-               "training": report["training"]["launches"]}
+               "training": report["training"]["launches"],
+               "model_launch": report["model_launch"]["launches"]}
     line = []
     for row in kernels:
         name = row["name"]

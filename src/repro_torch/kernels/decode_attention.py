@@ -8,15 +8,48 @@ reference's ``attention_decode`` computes): the two differ only where
 The kernel splits each row's cache over ``n_split`` blocks (flash
 decoding) and combines their partial softmaxes in one launch; the split
 count is chosen here, by a function the CPU tests hold.
+
+On tensors that hold no data (the ``meta`` device, or fake tensors: the
+dry run's shard programs, ``launch/model_dryrun.py``) the wrapper calls the
+shape-only op ``torch.ops.repro_torch.decode_attention``, which the dry
+run's counter sees as one operation and counts by ``decode_attention_flops``
+(what the kernel would launch on the card); it launches nothing.
 """
 from __future__ import annotations
 
 import threading
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
 from . import build
 from .ref import decode_attention_ref
+
+# the shape-only op of tensors that hold no data (the dry run)
+_LIB = torch.library.Library("repro_torch", "FRAGMENT")
+_LIB.define("decode_attention(Tensor q, Tensor k, Tensor v, Tensor lengths) "
+            "-> Tensor")
+
+
+def _shape_only(q, k, v, lengths):
+    return torch.empty_like(q)
+
+
+# the fake implementation serves ``meta`` tensors too
+torch.library.register_fake("repro_torch::decode_attention")(_shape_only)
+
+
+def decode_attention_flops(q_shape, k_shape) -> int:
+    """Multiply-adds x 2 of one call over the cache's whole S, as the
+    reference's jnp decode attention counts them (two batched products of
+    B x H x S x D): 4 B H S D."""
+    b, h, d = q_shape
+    return 4 * b * h * k_shape[1] * d
+
+
+def _holds_no_data(t: torch.Tensor) -> bool:
+    return t.is_meta or isinstance(t, FakeTensor)
+
 
 MAX_HEAD_DIM = 256
 MAX_SPLITS = 64          # csrc/decode_attention.cu kMaxSplits
@@ -71,6 +104,8 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     On the card: q, k and v contiguous, all bfloat16 or all float32, H a
     multiple of KVH, D a multiple of 16 up to 256, ``lengths`` int32 (B,)
     on the same device (read there: no host sync)."""
+    if _holds_no_data(q):
+        return torch.ops.repro_torch.decode_attention(q, k, v, lengths)
     if build.on_cpu(q, k, v, lengths):
         return decode_attention_ref(q, k, v, lengths)
     if q.dtype not in (torch.bfloat16, torch.float32):

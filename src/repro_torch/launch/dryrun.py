@@ -1,6 +1,5 @@
-"""Dry run of the production cells: per-shard memory, traffic and
-collective bytes, with no card — counterpart of ``repro/launch/dryrun.py``,
-its SQL half.
+"""Dry run of the production cells: per-shard memory, traffic, FLOPs and
+collective bytes, with no card — counterpart of ``repro/launch/dryrun.py``.
 
 Per SQL cell this module builds the fragment for the 256-shard mesh (or
 2 x 256), makes its inputs as fake tensors on ``cuda`` (shapes and dtypes,
@@ -10,15 +9,21 @@ eager run's.  Every figure in a record is per shard: what one card of a
 256-card deployment would read, send and hold (``n_chips`` is the mesh's
 size; the shards of a sharded tensor are its leading axis).
 
-The model cells (every configuration x shape) need the LM families and
-``training/``: they are ROADMAP queue 1 item 5, and a sweep reports them as
-``not_ported``.
+Per model cell (each configuration's shapes, on the 16 x 16 and
+2 x 16 x 16 meshes) ``model_dryrun.lower_cell`` builds one shard's program
+and ``model_dryrun.analyze`` counts it on ``meta`` tensors: the reference's
+record (``model_params``, ``active_params``, ``seq_len``, ``global_batch``,
+``kind``, ``flops_per_device`` and ``flops_detail``, bytes accessed,
+collective bytes by kind, ``memory``, ``n_chips``), ``fits_card`` against
+the card's memory in place of ``fits_16gb_v5e``.
 
 Usage:
+  python -m repro_torch.launch.dryrun --arch qwen3-4b --shape train_4k --mesh pod
   python -m repro_torch.launch.dryrun --arch sirius-tpch --shape q3_sf100 --mesh both
   python -m repro_torch.launch.dryrun --sweep            # every cell, both meshes
   python -m repro_torch.launch.dryrun --arch sirius-tpch --sweep
-Records go to ``build/dryrun/`` (``--outdir``).
+Records go to ``build/dryrun/`` (``--outdir``).  Neither needs a card; on
+one, the model records are the same, the SQL ones take its branches.
 """
 from __future__ import annotations
 
@@ -40,8 +45,6 @@ SQL_ARCH = "sirius-tpch"
 STATED_CARD_BYTES = 80 * 10**9
 OUT_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..", "build",
                        "dryrun")
-MODEL_HALF = ("the model cells of the dry run wait for the LM families and "
-              "training/ (ROADMAP.md queue 1 item 5)")
 
 
 def card_memory() -> dict:
@@ -100,8 +103,36 @@ def analyze(fragment, specs, mesh) -> dict:
             "memory": mem, "n_chips": n}
 
 
-def lower_cell(arch: str, shape_name: str, multi_pod: bool):
-    raise NotImplementedError(f"{arch} x {shape_name}: {MODEL_HALF}")
+def lower_cell(arch: str, shape_name: str, multi_pod: bool, **kw):
+    """A model cell's shard program → (cfg, shape, cell):
+    ``model_dryrun.lower_cell``."""
+    from .model_dryrun import lower_cell as lower_model_cell
+    return lower_model_cell(arch, shape_name, multi_pod, **kw)
+
+
+def _metadata(cfg, shape) -> dict:
+    return {"model_params": cfg.param_count(),
+            "active_params": cfg.active_param_count(),
+            "seq_len": shape.seq_len, "global_batch": shape.global_batch,
+            "kind": shape.kind}
+
+
+def cell_metadata(arch: str, shape_name: str, multi_pod: bool) -> dict:
+    """A model cell's record metadata, as ``run_cell`` writes it."""
+    from ..configs.base import get_config
+    from .mesh import make_production_mesh
+    cfg = get_config(arch)
+    shape = next(s for s in cfg.shapes() if s.name == shape_name)
+    n = make_production_mesh(multi_pod=multi_pod, device="meta").size
+    return {**_metadata(cfg, shape), "n_chips": n}
+
+
+def model_record(arch: str, shape_name: str, multi_pod: bool, **kw) -> dict:
+    """A model cell's record fields (``lower_cell`` then
+    ``model_dryrun.analyze``); ``kw`` goes to ``lower_cell``."""
+    from .model_dryrun import analyze as analyze_model
+    cfg, shape, cell = lower_cell(arch, shape_name, multi_pod, **kw)
+    return {**_metadata(cfg, shape), **analyze_model(cell)}
 
 
 def run_cell(arch: str, shape_name: str, multi_pod: bool,
@@ -114,26 +145,25 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
     record = {"arch": arch, "shape": shape_name, "mesh": mesh_name,
               "status": "ok"}
     try:
-        if arch != SQL_ARCH:
-            lower_cell(arch, shape_name, multi_pod)
         t0 = time.perf_counter()
-        fragment, specs, extra = lower_sql_fragment(shape_name, multi_pod,
-                                                    mesh=mesh)
-        record.update(extra)
-        record.update(analyze(fragment, specs, mesh))
+        if arch == SQL_ARCH:
+            fragment, specs, extra = lower_sql_fragment(shape_name, multi_pod,
+                                                        mesh=mesh)
+            record.update(extra)
+            record.update(analyze(fragment, specs, mesh))
+        else:
+            record.update(model_record(arch, shape_name, multi_pod))
         record["trace_time_s"] = round(time.perf_counter() - t0, 2)
         mem = record["memory"]
         coll = record["collective_bytes_per_device"]
-        print(f"[dryrun] {arch} x {shape_name} x {mesh_name}: OK  "
+        flops = (f"flops/shard={record['flops_per_device']:.4e}  "
+                 if "flops_per_device" in record else "")
+        print(f"[dryrun] {arch} x {shape_name} x {mesh_name}: OK  {flops}"
               f"resident/shard={mem['resident_bytes_per_chip'] / 2**30:.3f}GiB "
               f"fits_card={mem['fits_card']}  "
               f"accessed/shard={record['bytes_accessed_per_device']:.4e}B  "
               f"collectives/shard={coll['total']:.4e}B "
               f"{ {k: v for k, v in coll.items() if k != 'total'} }")
-    except NotImplementedError as e:
-        record["status"] = "not_ported"
-        record["error"] = str(e)
-        print(f"[dryrun] {arch} x {shape_name} x {mesh_name}: not_ported")
     except Exception as e:  # noqa: BLE001 — one cell fails, the sweep goes on
         record["status"] = "error"
         record["error"] = f"{type(e).__name__}: {e}"
@@ -146,6 +176,10 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
         with open(os.path.join(outdir, fname), "w") as f:
             json.dump(record, f, indent=1, default=str)
     return record
+
+
+def _run(cell) -> dict:
+    return run_cell(*cell[:3], outdir=cell[3])
 
 
 SQL_CELLS = ("q3_sf100", "q3pt_sf100", "q1_sf100", "q3c_sf100",
@@ -171,6 +205,8 @@ def main(argv=None) -> int:
                     default="both")
     ap.add_argument("--sweep", action="store_true")
     ap.add_argument("--outdir", default=os.path.abspath(OUT_DIR))
+    ap.add_argument("--jobs", type=int, default=min(4, os.cpu_count() or 1),
+                    help="cells run at once, each in a process of its own")
     args = ap.parse_args(argv)
 
     meshes = {"pod": [False], "multipod": [True], "both": [False, True]}
@@ -181,15 +217,21 @@ def main(argv=None) -> int:
             ap.error("--arch and --shape, or --sweep")
         todo = [(args.arch, args.shape)]
     status = {}
-    for arch, shape in todo:
-        for mp in meshes[args.mesh]:
-            rec = run_cell(arch, shape, mp, outdir=args.outdir)
-            status[rec["status"]] = status.get(rec["status"], 0) + 1
-    print(f"[dryrun] done; {status}")
-    # a sweep reports the cells still to port; asked for alone, one fails
-    failed = status.get("error") or (not args.sweep
-                                     and status.get("not_ported"))
-    return 1 if failed else 0
+    t0 = time.perf_counter()
+    cells = [(arch, shape, mp, args.outdir) for arch, shape in todo
+             for mp in meshes[args.mesh]]
+    if args.jobs > 1 and len(cells) > 1:
+        import multiprocessing
+        from concurrent.futures import ProcessPoolExecutor
+        with ProcessPoolExecutor(args.jobs, multiprocessing.get_context(
+                "spawn")) as pool:
+            records = list(pool.map(_run, cells))
+    else:
+        records = [_run(c) for c in cells]
+    for rec in records:
+        status[rec["status"]] = status.get(rec["status"], 0) + 1
+    print(f"[dryrun] done; {status} in {time.perf_counter() - t0:.1f} s")
+    return 1 if status.get("error") else 0
 
 
 if __name__ == "__main__":

@@ -21,17 +21,27 @@ Differences from the reference, none of which changes a result:
 - ``Attention.decode`` and ``MLA.decode`` write the new rows into the cache
   in place (the reference returns new cache arrays), so a step copies no
   cache.
-- ``constrain`` (the reference's mesh-sharding hint) is left out, and the
-  MoE dispatch runs as one group (``_moe_groups``): on one card both are
-  the identity.
+- The reference's mesh-dependent paths take an ambient ``MeshContext``
+  (``mesh_context``; the reference's ``compat.set_mesh``), ``None`` on one
+  card, where every one of them is the identity and the MoE dispatches in
+  one group.  Under a mesh ``constrain`` records the layout it pins and
+  the MoE dispatches in as many groups as the mesh has data shards, each
+  with its own capacity (``_moe_groups``), as the reference's.  A shard
+  program (``launch/model_dryrun.py``) is a ``MeshContext`` that runs one
+  shard at its local widths: the hooks below (``tp_in`` / ``tp_out``
+  around each mixer and ffn, ``tp_sum``, ``heads_kv``, the embedding and
+  vocabulary hooks, the decode overrides, the loop helpers) let it make
+  the collectives its layouts force; every one of them is the identity
+  without it.
 - Decode attention goes through the hand-written kernel
   (``kernels/decode_attention.py``) where the reference calls its jnp
   twin ``decode_attention_ref``; the two compute the same function.
 """
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -41,6 +51,176 @@ from ..configs.base import ArchConfig
 from ..kernels.decode_attention import decode_attention
 
 NEG_INF = -1e30
+
+
+# ---------------------------------------------------------------------------
+# the ambient mesh (the reference's compat.set_mesh / get_abstract_mesh)
+# ---------------------------------------------------------------------------
+
+
+class MeshContext:
+    """An ambient mesh: axis names and sizes (``axes``, as a ``ShardMesh``'s),
+    and what the mesh-dependent paths did under it: ``pins`` holds the
+    layout each ``constrain`` pinned.  Its methods are the model's hooks;
+    here they are the logical program's, one tensor for the whole mesh
+    (the identity but for the MoE's groups), and a shard program
+    (``launch/model_dryrun.py::ShardProgram``) overrides them."""
+
+    partitioned = False       # True: one shard's program at local widths
+
+    def __init__(self, axes):
+        self.axes = tuple(axes)
+        self.sizes: Dict[str, int] = dict(self.axes)
+        self.pins: List[Tuple[Tuple[int, ...], tuple]] = []
+
+    def data_shards(self) -> int:
+        return math.prod(self.sizes.get(a, 1) for a in ("pod", "data"))
+
+    def pin(self, x: torch.Tensor, spec: tuple) -> torch.Tensor:
+        self.pins.append((tuple(x.shape), spec))
+        return x
+
+    def moe_groups(self, t: int) -> int:
+        """The reference's ``_moe_groups``: the data shards, where they
+        divide the tokens and the mesh has a ``model`` axis, else 1."""
+        if "model" not in self.sizes:
+            return 1
+        n = self.data_shards()
+        return n if n > 0 and t % n == 0 else 1
+
+    # the tensor-parallel hooks (see the module docstring)
+    def tp_in(self, h: torch.Tensor) -> torch.Tensor:
+        """Into a mixer or an ffn (a shard gathers a sequence-parallel
+        stream)."""
+        return h
+
+    def tp_out(self, o: torch.Tensor) -> torch.Tensor:
+        """Out of a mixer or an ffn (a shard sums its row-parallel partial
+        outputs)."""
+        return o
+
+    def tp_sum(self, p: torch.Tensor) -> torch.Tensor:
+        """A product whose contracted width a shard splits (its partial
+        sums, all-reduced)."""
+        return p
+
+    def kv_columns(self, t: torch.Tensor) -> torch.Tensor:
+        """A column-split projection whose heads a shard needs whole (k and
+        v where the KV heads do not divide the model axis, MLA's latent)."""
+        return t
+
+    def heads_kv(self, q, k, v):
+        """k and v for q's heads (a shard holding fewer query heads than KV
+        heads picks those its heads read)."""
+        return k, v
+
+    def sequence_parallel(self, x: torch.Tensor) -> torch.Tensor:
+        return x
+
+    def embed_rows(self, embed: torch.Tensor,
+                   tokens: torch.Tensor) -> torch.Tensor:
+        return embed[tokens]
+
+    def vocab_log_softmax(self, logits: torch.Tensor) -> torch.Tensor:
+        return torch.log_softmax(logits, dim=-1)
+
+    def vocab_take(self, logp: torch.Tensor,
+                   targets: torch.Tensor) -> torch.Tensor:
+        """logp (..., V) at ``targets`` (...) → (...)."""
+        return logp.gather(-1, targets[..., None])[..., 0]
+
+    def last_position(self, hidden: torch.Tensor) -> torch.Tensor:
+        return hidden[:, -1:]
+
+    def cache_enc_out(self, enc_out: torch.Tensor) -> torch.Tensor:
+        return enc_out
+
+    # loops of identical iterations (a shard program may sample them)
+    def loop_map(self, n: int, body: Callable) -> list:
+        """``[body(i) for i in range(n)]``."""
+        return [body(i) for i in range(n)]
+
+    def loop_fold(self, n: int, body: Callable, carry):
+        """``carry = body(i, carry)`` for i in range(n)."""
+        for i in range(n):
+            carry = body(i, carry)
+        return carry
+
+    def loop_scan(self, n: int, body: Callable, carry):
+        """``carry, y = body(i, carry)`` for i in range(n) → (carry,
+        [y...])."""
+        ys = []
+        for i in range(n):
+            carry, y = body(i, carry)
+            ys.append(y)
+        return carry, ys
+
+    def stack_steps(self, ys: list, dim: int) -> torch.Tensor:
+        """``torch.stack`` of a ``loop_scan``'s outputs."""
+        return torch.stack(ys, dim=dim)
+
+
+_MESH: Optional[MeshContext] = None
+_ONE_CARD = MeshContext(())          # no mesh: every hook as on one card
+
+
+def get_mesh() -> Optional[MeshContext]:
+    return _MESH
+
+
+def hooks() -> MeshContext:
+    """The ambient mesh, or the one-card context where none is set."""
+    return _MESH or _ONE_CARD
+
+
+def tp_in(h: torch.Tensor) -> torch.Tensor:
+    return hooks().tp_in(h)
+
+
+def tp_out(o: torch.Tensor) -> torch.Tensor:
+    return hooks().tp_out(o)
+
+
+@contextlib.contextmanager
+def mesh_context(mesh: Optional[MeshContext]):
+    """Install ``mesh`` as the ambient mesh for the block (``None``: one
+    card), restoring the previous one after."""
+    global _MESH
+    prev, _MESH = _MESH, mesh
+    try:
+        yield mesh
+    finally:
+        _MESH = prev
+
+
+def constrain_spec(shape, axes, sizes: Dict[str, int]) -> Optional[tuple]:
+    """The reference's ``constrain`` rule: per dimension ``"batch"`` (the
+    mesh's ``pod``/``data`` axes where they divide it), ``"model"`` (where
+    it divides) or None; None for the whole spec where the mesh has no
+    ``model`` axis."""
+    if "model" not in sizes:
+        return None
+    baxes = tuple(n for n in ("pod", "data") if n in sizes)
+    batch = baxes if len(baxes) > 1 else (baxes[0] if baxes else None)
+    spec = []
+    for dim, a in zip(shape, axes):
+        if a == "batch":
+            n = math.prod(sizes[ax] for ax in baxes)
+            spec.append(batch if n and dim % n == 0 else None)
+        elif a == "model":
+            spec.append("model" if dim % sizes["model"] == 0 else None)
+        else:
+            spec.append(None)
+    return tuple(spec)
+
+
+def constrain(x: torch.Tensor, *axes) -> torch.Tensor:
+    """Ambient-mesh layout constraint (the reference's ``constrain``):
+    identity on values; under a mesh it records the layout it pins."""
+    if _MESH is None:
+        return x
+    spec = constrain_spec(x.shape, axes, _MESH.sizes)
+    return x if spec is None else _MESH.pin(x, spec)
 
 
 def normal(gen: torch.Generator, shape, scale: float, device,
@@ -167,14 +347,17 @@ def blockwise_attention(q, k, v, causal: bool = True, block_q: int = 512,
     qt = q.transpose(1, 2)                # (B,H,Sq,Dk)
     kt = k.transpose(1, 2)                # (B,KVH,Skv,Dk)
     vt = v.transpose(1, 2)
-    blocks = []
-    for qi in range(nq):
+    # the reference pins heads over 'model' through the block scans (k/v
+    # replicated where KVH does not divide the axis)
+    qt = constrain(qt, "batch", "model", None, None)
+    kt = constrain(kt, "batch", "model", None, None)
+    vt = constrain(vt, "batch", "model", None, None)
+
+    def q_block(qi):
         q_blk = qt[:, :, qi * bq:(qi + 1) * bq]
-        m_run = torch.full((b, h, bq), NEG_INF, dtype=torch.float32,
-                           device=q.device)
-        l_run = torch.zeros((b, h, bq), dtype=torch.float32, device=q.device)
-        acc = torch.zeros((b, h, bq, dv), dtype=torch.float32, device=q.device)
-        for kj in range(nk):
+
+        def kv_step(kj, carry):
+            m_run, l_run, acc = carry
             m, l, o = _attend_block(q_blk, kt[:, :, kj * bk:(kj + 1) * bk],
                                     vt[:, :, kj * bk:(kj + 1) * bk],
                                     qi * bq, kj * bk, causal, scale, kv_len)
@@ -186,8 +369,17 @@ def blockwise_attention(q, k, v, causal: bool = True, block_q: int = 512,
             beta = torch.exp(m - m_new)
             l_run = l_run * alpha + l * beta
             acc = acc * alpha[..., None] + o * beta[..., None]
-            m_run = m_new
-        blocks.append(acc / l_run.clamp(min=1e-30)[..., None])
+            return m_new, l_run, acc
+
+        carry = (torch.full((b, h, bq), NEG_INF, dtype=torch.float32,
+                            device=q.device),
+                 torch.zeros((b, h, bq), dtype=torch.float32, device=q.device),
+                 torch.zeros((b, h, bq, dv), dtype=torch.float32,
+                             device=q.device))
+        _, l_run, acc = hooks().loop_fold(nk, kv_step, carry)
+        return acc / l_run.clamp(min=1e-30)[..., None]
+
+    blocks = hooks().loop_map(nq, q_block)
     out = torch.cat(blocks, dim=2).transpose(1, 2)          # (B,Sq,H,Dv)
     return out[:, :q_len].to(q.dtype)
 
@@ -232,9 +424,11 @@ class Attention(nn.Module):
             q = q + self.bq
             k = k + self.bk
             v = v + self.bv
-        q = q.reshape(b, s, cfg.n_heads, hd)
-        k = k.reshape(b, s, cfg.n_kv_heads, hd)
-        v = v.reshape(b, s, cfg.n_kv_heads, hd)
+        k, v = hooks().kv_columns(k), hooks().kv_columns(v)
+        # the heads this program holds (all of them on one card)
+        q = q.reshape(b, s, -1, hd)
+        k = k.reshape(b, s, -1, hd)
+        v = v.reshape(b, s, -1, hd)
         if cfg.qk_norm:
             q = rmsnorm(q, self.q_norm, cfg.norm_eps)
             k = rmsnorm(k, self.k_norm, cfg.norm_eps)
@@ -248,9 +442,9 @@ class Attention(nn.Module):
         b, s, _ = x.shape
         pos = torch.arange(s, dtype=torch.int32, device=x.device).expand(b, s)
         q, k, v = self._qkv(x, pos)
+        k, v = hooks().heads_kv(q, k, v)
         o = blockwise_attention(q, k, v, causal=causal)
-        o = o.reshape(b, s, self.cfg.n_heads * self.cfg.resolved_head_dim)
-        return o @ self.wo
+        return o.reshape(b, s, -1) @ self.wo
 
     def decode(self, x: torch.Tensor, cache_k: torch.Tensor,
                cache_v: torch.Tensor, length: torch.Tensor) -> torch.Tensor:
@@ -262,6 +456,9 @@ class Attention(nn.Module):
         b = x.shape[0]
         pos = length[:, None].to(torch.int32)                  # (B,1)
         q, k, v = self._qkv(x, pos)
+        if _MESH is not None and _MESH.partitioned:
+            return _MESH.attention_decode(self, q, k, v, cache_k, cache_v,
+                                          length)
         row = length.to(torch.int64).clamp(0, cache_k.shape[1] - 1)
         batch = torch.arange(b, device=x.device)
         cache_k[batch, row] = k[:, 0]
@@ -338,7 +535,7 @@ class MLA(nn.Module):
         """x (B,S,d) → the normed latent c_kv (B,S,r) and the rotated shared
         rope key (B,S,rope_dim)."""
         cfg, m = self.cfg, self.cfg.mla
-        c_kv, k_rope = (x @ self.wdkv).split(
+        c_kv, k_rope = hooks().kv_columns(x @ self.wdkv).split(
             [m.kv_lora_rank, m.qk_rope_head_dim], dim=-1)
         c_kv = rmsnorm(c_kv, self.kv_norm, cfg.norm_eps)
         k_rope = apply_rope(k_rope[:, :, None], pos, cfg.rope_theta)[:, :, 0]
@@ -348,7 +545,7 @@ class MLA(nn.Module):
         """The rope-augmented query (B,S,H,nope+rope)."""
         cfg, m = self.cfg, self.cfg.mla
         b, s, _ = x.shape
-        q = (x @ self.wq).reshape(b, s, cfg.n_heads, m.qk_nope_head_dim
+        q = (x @ self.wq).reshape(b, s, -1, m.qk_nope_head_dim
                                   + m.qk_rope_head_dim)
         q_nope, q_rope = q.split([m.qk_nope_head_dim, m.qk_rope_head_dim],
                                  dim=-1)
@@ -360,10 +557,11 @@ class MLA(nn.Module):
         expanded into per-head k (B,S,H,nope+rope) and v (B,S,H,v)."""
         m = self.cfg.mla
         b, s, _ = x.shape
-        h = self.cfg.n_heads
+        wuk = self.wuk
+        h = wuk.shape[1] // m.qk_nope_head_dim          # the heads held
         pos = torch.arange(s, dtype=torch.int32, device=x.device).expand(b, s)
         c_kv, k_rope = self._latent(x, pos)
-        k_nope = (c_kv @ self.wuk).reshape(b, s, h, m.qk_nope_head_dim)
+        k_nope = (c_kv @ wuk).reshape(b, s, h, m.qk_nope_head_dim)
         v = (c_kv @ self.wuv).reshape(b, s, h, m.v_head_dim)
         k = torch.cat([k_nope, k_rope[:, :, None].expand(
             b, s, h, m.qk_rope_head_dim)], dim=-1)
@@ -376,8 +574,9 @@ class MLA(nn.Module):
         ``min(length, S-1)`` in place (``dynamic_update_slice``'s clamp),
         then expands every cache row into per-head K and V, as the reference
         does, and attends in float32 over the rows below ``length + 1``."""
-        m = self.cfg.mla
-        b, h = x.shape[0], self.cfg.n_heads
+        if _MESH is not None and _MESH.partitioned:
+            return _MESH.mla_decode(self, x, cache_ckv, cache_krope, length)
+        b = x.shape[0]
         pos = length[:, None].to(torch.int32)
         c_kv, k_rope = self._latent(x, pos)
         row = length.to(torch.int64).clamp(0, cache_ckv.shape[1] - 1)
@@ -385,23 +584,35 @@ class MLA(nn.Module):
         cache_ckv[batch, row] = c_kv[:, 0]
         cache_krope[batch, row] = k_rope[:, 0]
         q = self._q(x, pos)[:, 0].to(torch.float32)              # (B,H,qd)
+        o = self.attend_latent(q, cache_ckv, cache_krope, length, self.wuk,
+                               self.wuv, x.dtype)
+        return o.reshape(b, 1, -1) @ self.wo
+
+    def attend_latent(self, q: torch.Tensor, cache_ckv: torch.Tensor,
+                      cache_krope: torch.Tensor, length: torch.Tensor,
+                      wuk: torch.Tensor, wuv: torch.Tensor,
+                      dtype: torch.dtype) -> torch.Tensor:
+        """q (B,H,qd) float32 against every cache row expanded by ``wuk`` /
+        ``wuv`` into per-head K and V, in float32 over the rows below
+        ``length + 1`` → (B,H,v) in ``dtype``."""
+        m = self.cfg.mla
+        b, h = q.shape[:2]
         sl, nope = cache_ckv.shape[1], m.qk_nope_head_dim
         # K and V written in float32 as (B,H,S,D) while they are converted,
         # so that the two products read them with no further copy
         k = torch.empty((b, h, sl, q.shape[-1]), dtype=torch.float32,
-                        device=x.device)
-        k[..., :nope] = (cache_ckv @ self.wuk).reshape(
+                        device=q.device)
+        k[..., :nope] = (cache_ckv @ wuk).reshape(
             b, sl, h, nope).transpose(1, 2)
         k[..., nope:] = cache_krope[:, None]
-        v = (cache_ckv @ self.wuv).reshape(b, sl, h, m.v_head_dim).transpose(
+        v = (cache_ckv @ wuv).reshape(b, sl, h, m.v_head_dim).transpose(
             1, 2).to(torch.float32, memory_format=torch.contiguous_format)
         s_ = (q[:, :, None] @ k.transpose(-1, -2))[:, :, 0] \
             / (q.shape[-1] ** 0.5)                                 # (B,H,S)
-        mask = torch.arange(sl, device=x.device)[None, None] \
+        mask = torch.arange(sl, device=q.device)[None, None] \
             < (length + 1)[:, None, None]
         pr = torch.softmax(torch.where(mask, s_, NEG_INF), dim=-1)
-        o = (pr[:, :, None] @ v)[:, :, 0].to(x.dtype)             # (B,H,v)
-        return o.reshape(b, 1, -1) @ self.wo
+        return (pr[:, :, None] @ v)[:, :, 0].to(dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -483,24 +694,68 @@ class MoE(nn.Module):
     def forward(self, x: torch.Tensor, stacked: bool = False) -> torch.Tensor:
         """x (B,S,d) → (B,S,d).  ``stacked``: the layer is in the
         reference's scanned stack, whose forward rounds the router to the
-        compute dtype first."""
+        compute dtype first.
+
+        The t = B·S tokens dispatch in ``_moe_groups(t)`` groups of t / G
+        consecutive tokens (one on one card), each routed, packed and
+        combined on its own with its own capacity; the expert products run
+        over all groups' buffers at once.  A shard program holding
+        ``wg.shape[0]`` of the E experts (from ``expert_offset``) packs and
+        runs only theirs, and its output is their partial sum."""
         m = self.cfg.moe
         b, s, d = x.shape
         t = b * s
-        e = m.n_experts
+        wg, wu, wd = self.wg, self.wu, self.wd
+        e, el = m.n_experts, wg.shape[0]
+        off = _MESH.expert_offset(e) if el != e else 0
+        ng = _moe_groups(t)
+        tl = t // ng
         xf = x.reshape(t, d)
+        if _MESH is not None:
+            constrain(xf.reshape(ng, tl, d), "batch", None, None)
         router = self.router.to(x.dtype) if stacked else self.router
-        slot, tok, w, cap = self.route(xf, router)
-        xbuf = torch.zeros((e * cap + 1, d), dtype=x.dtype, device=x.device)
-        xbuf[slot] = xf[tok]
-        xb = xbuf[:-1].reshape(e, cap, d)
-        yb = (silu(torch.bmm(xb, self.wg)) * torch.bmm(xb, self.wu))
-        yb = torch.bmm(yb, self.wd).reshape(e * cap, d)
-        contrib = yb[slot.clamp(0, e * cap - 1)] * w.to(x.dtype)[:, None]
-        y = moe_combine(contrib, tok, t)
+        routes = [self.route(xf[g * tl:(g + 1) * tl], router)
+                  for g in range(ng)]
+        cap = routes[0][3]
+        bufs = []
+        for g, (slot, tok, _, _) in enumerate(routes):
+            if el != e:      # this shard's experts only
+                slot = slot - off * cap
+                slot = torch.where((slot >= 0) & (slot < el * cap), slot,
+                                   torch.full_like(slot, el * cap))
+            xbuf = torch.zeros((el * cap + 1, d), dtype=x.dtype,
+                               device=x.device)
+            xbuf[slot] = xf[g * tl:(g + 1) * tl][tok]
+            bufs.append(xbuf[:-1].reshape(el, cap, d))
+        xb = bufs[0] if ng == 1 else torch.stack(bufs, 1).reshape(
+            el, ng * cap, d)
+        if _MESH is not None:
+            constrain(xb.reshape(el, ng, cap, d).transpose(0, 1),
+                      "batch", "model", None, None)
+        yb = (silu(torch.bmm(xb, wg)) * torch.bmm(xb, wu))
+        yb = torch.bmm(yb, wd)
+        if _MESH is not None:
+            constrain(yb.reshape(el, ng, cap, d).transpose(0, 1),
+                      "batch", "model", None, None)
+        ys = []
+        for g, (slot, tok, w, _) in enumerate(routes):
+            ybg = (yb if ng == 1 else yb[:, g * cap:(g + 1) * cap]).reshape(
+                el * cap, d)
+            if el != e:
+                slot = slot - off * cap
+                w = w * ((slot >= 0) & (slot < el * cap))
+            contrib = ybg[slot.clamp(0, el * cap - 1)] * w.to(x.dtype)[:, None]
+            ys.append(moe_combine(contrib, tok, tl))
+        y = ys[0] if ng == 1 else torch.cat(ys)
         if self.shared is not None:
             y = y + self.shared(xf)
         return y.reshape(b, s, d)
+
+
+def _moe_groups(t: int) -> int:
+    """Dispatch groups: the ambient mesh's data shards (1 when unset), the
+    reference's ``_moe_groups``."""
+    return hooks().moe_groups(t)
 
 
 # ---------------------------------------------------------------------------
@@ -559,8 +814,8 @@ class Mamba(nn.Module):
         compiles the reference's."""
         mm = self.cfg.mamba
         r = _dt_rank(self.cfg)
-        dt_r, bmat, cmat = (xin @ self.wx).split([r, mm.d_state, mm.d_state],
-                                                 dim=-1)
+        dt_r, bmat, cmat = hooks().tp_sum(xin @ self.wx).split(
+            [r, mm.d_state, mm.d_state], dim=-1)
         delta = softplus(dt_r @ self.wdt + self.dt_bias.to(xin.dtype))
         a = -torch.exp(a_log)
         da = torch.exp(delta.to(torch.float32)[..., None] * a)
@@ -584,15 +839,22 @@ class Mamba(nn.Module):
         xin = silu(_causal_conv(xin, self.conv))
         a_log = self.a_log.to(x.dtype) if stacked else self.a_log
         da, dbx, cmat = self._ssm_inputs(xin, a_log)
-        b, s = x.shape[:2]
+        if _MESH is not None:     # the reference pins the scan's din
+            constrain(da, "batch", None, "model", None)
+            constrain(dbx, "batch", None, "model", None)
+        s = x.shape[1]
         h = torch.zeros(da.shape[0], *da.shape[2:], dtype=torch.float32,
                         device=x.device)
-        ys = []
-        for i in range(s):
+        if _MESH is not None:
+            constrain(h, "batch", "model", None)
+
+        def step(i, h):
             h = torch.addcmul(dbx[:, i], da[:, i], h)
-            ys.append(torch.einsum("bdn,bn->bd", h, cmat[:, i]))
+            return h, torch.einsum("bdn,bn->bd", h, cmat[:, i])
+
+        _, ys = hooks().loop_scan(s, step, h)
         del da, dbx
-        return self._out(torch.stack(ys, dim=1), xin, z)
+        return self._out(hooks().stack_steps(ys, 1), xin, z)
 
     def decode(self, x: torch.Tensor, conv_state: torch.Tensor,
                ssm_state: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor,

@@ -21,7 +21,17 @@ the backward pass (``torch.utils.checkpoint``), as the reference's
 The model runs on the current CUDA device unless ``device="cpu"`` is
 passed, and raises without a card.  On the card its decode attention is the
 hand-written kernel ``csrc/decode_attention.cu``; on the CPU the wrapper
-runs its plain version.
+runs its plain version.  ``device="meta"`` builds the shapes only (the dry
+run's shard programs, ``launch/model_dryrun.py``).
+
+Under an ambient mesh (``layers.mesh_context``) the residual stream is
+pinned sequence-parallel (``_constrain_sp``) at the stack's input and
+after every scan step, as the reference's; a shard program gathers and
+scatters it around each mixer and ffn (``layers.tp_in`` / ``tp_out``), and
+takes the embedding, the vocabulary and the last position through the
+hooks ``embed_rows``, ``vocab_log_softmax``, ``vocab_take`` and
+``last_position`` (``layers.MeshContext``).  Without a mesh each is what
+it was on one card.
 """
 from __future__ import annotations
 
@@ -81,6 +91,25 @@ def default_device() -> torch.device:
     return torch.device("cuda", torch.cuda.current_device())
 
 
+def _constrain_sp(x: torch.Tensor) -> torch.Tensor:
+    """The reference's sequence-parallel constraint of the (B, S, d)
+    residual stream: (batch axes, 'model', None) where S divides the model
+    axis (the batch axes where they divide B), else the identity.  A shard
+    program keeps its own rows of S from here on."""
+    mesh = L.get_mesh()
+    if mesh is None or "model" not in mesh.sizes or x.dim() != 3:
+        return x
+    m = mesh.sizes["model"]
+    if x.shape[1] % m != 0:
+        return x
+    baxes = tuple(n for n in ("pod", "data") if n in mesh.sizes)
+    if baxes and x.shape[0] % math.prod(mesh.sizes[a] for a in baxes):
+        baxes = ()
+    spec = (baxes if len(baxes) > 1 else (baxes[0] if baxes else None),
+            "model", None)
+    return mesh.sequence_parallel(mesh.pin(x, spec))
+
+
 def _add(x: torch.Tensor, o: torch.Tensor) -> Tuple[torch.Tensor,
                                                    torch.Tensor]:
     """The residual add ``x + o`` in x's dtype, and its float32 value before
@@ -123,9 +152,9 @@ class Block(nn.Module):
              stacked: bool) -> Tuple[torch.Tensor, torch.Tensor]:
         if self.kind.ffn == "none":
             return x, x32
-        h = L.rmsnorm(x32, self.ln2, self.eps, x.dtype)
-        return _add(x, self.ffn(h, stacked) if self.kind.ffn == "moe"
-                    else self.ffn(h))
+        h = L.tp_in(L.rmsnorm(x32, self.ln2, self.eps, x.dtype))
+        return _add(x, L.tp_out(self.ffn(h, stacked) if self.kind.ffn == "moe"
+                                else self.ffn(h)))
 
     def forward(self, x: torch.Tensor, x32: Optional[torch.Tensor] = None,
                 stacked: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -135,11 +164,12 @@ class Block(nn.Module):
         from the embedding or a step's carry).  ``stacked``: the block is in
         the scanned stack (not the prefix), whose forward rounds the router
         and ``a_log`` to the compute dtype."""
-        h = L.rmsnorm(x if x32 is None else x32, self.ln1, self.eps, x.dtype)
+        h = L.tp_in(L.rmsnorm(x if x32 is None else x32, self.ln1, self.eps,
+                              x.dtype))
         if self.kind.mixer == "mamba":
-            x, x32 = _add(x, self.mamba(h, stacked))
+            x, x32 = _add(x, L.tp_out(self.mamba(h, stacked)))
         else:
-            x, x32 = _add(x, self.attn(h))
+            x, x32 = _add(x, L.tp_out(self.attn(h)))
         return self._ffn(x, x32, stacked)
 
     def decode(self, x: torch.Tensor, x32: Optional[torch.Tensor],
@@ -147,7 +177,8 @@ class Block(nn.Module):
                ) -> Tuple[torch.Tensor, torch.Tensor]:
         """The reference's ``_block_decode``, as ``forward`` with a cache
         that it advances in place."""
-        h = L.rmsnorm(x if x32 is None else x32, self.ln1, self.eps, x.dtype)
+        h = L.tp_in(L.rmsnorm(x if x32 is None else x32, self.ln1, self.eps,
+                              x.dtype))
         if self.kind.mixer == "attn":
             o = self.attn.decode(h, cache["k"], cache["v"], length)
         elif self.kind.mixer == "mla":
@@ -155,7 +186,7 @@ class Block(nn.Module):
         else:
             o, cache["conv"], cache["ssm"] = self.mamba.decode(
                 h, cache["conv"], cache["ssm"])
-        x, x32 = _add(x, o)
+        x, x32 = _add(x, L.tp_out(o))
         return self._ffn(x, x32, stacked=False)
 
 
@@ -184,15 +215,16 @@ class CrossAttention(nn.Module):
         norm reads), enc_out (B,S_enc,d) → (x + attention, its float32
         value before rounding)."""
         cfg, ap = self.cfg, self.attn
-        h = L.rmsnorm(x if x32 is None else x32, self.ln, cfg.norm_eps,
-                      x.dtype)
-        b, s, _ = x.shape
+        h = L.tp_in(L.rmsnorm(x if x32 is None else x32, self.ln,
+                              cfg.norm_eps, x.dtype))
+        b, s = h.shape[:2]
         se, hd = enc_out.shape[1], cfg.resolved_head_dim
-        q = (h @ ap.wq).reshape(b, s, cfg.n_heads, hd)
-        k = (enc_out @ ap.wk).reshape(b, se, cfg.n_kv_heads, hd)
-        v = (enc_out @ ap.wv).reshape(b, se, cfg.n_kv_heads, hd)
+        q = (h @ ap.wq).reshape(b, s, -1, hd)
+        k = L.hooks().kv_columns(enc_out @ ap.wk).reshape(b, se, -1, hd)
+        v = L.hooks().kv_columns(enc_out @ ap.wv).reshape(b, se, -1, hd)
+        k, v = L.hooks().heads_kv(q, k, v)
         o = L.blockwise_attention(q, k, v, causal=False)
-        return _add(x, o.reshape(b, s, cfg.n_heads * hd) @ ap.wo)
+        return _add(x, L.tp_out(o.reshape(b, s, -1) @ ap.wo))
 
 
 class EncoderLayer(nn.Module):
@@ -211,10 +243,10 @@ class EncoderLayer(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x (B,S_enc,d), the scan's carry (rounded) → the next carry.  The
         second norm reads the fresh residual sum unrounded (``_add``)."""
-        x, x32 = _add(x, self.attn(L.rmsnorm(x, self.ln1, self.eps),
-                                   causal=False))
-        h = L.rmsnorm(x32, self.ln2, self.eps, x.dtype)
-        return _add(x, self.ffn(h))[0]
+        x, x32 = _add(x, L.tp_out(self.attn(
+            L.tp_in(L.rmsnorm(x, self.ln1, self.eps)), causal=False)))
+        h = L.tp_in(L.rmsnorm(x32, self.ln2, self.eps, x.dtype))
+        return _add(x, L.tp_out(self.ffn(h)))[0]
 
 
 def _run(fn, i: int, x: torch.Tensor, *args) -> torch.Tensor:
@@ -253,8 +285,10 @@ class CausalLM(nn.Module):
         self.plan = plan
         self.n_prefix = cfg.first_dense_layers
         self.period = _period_len(cfg)
-        gen = torch.Generator(device=self.device)
-        gen.manual_seed(seed)
+        gen = None
+        if self.device.type != "meta":     # meta: shapes only
+            gen = torch.Generator(device=self.device)
+            gen.manual_seed(seed)
         dev, f32 = self.device, torch.float32
         self.embed = nn.Parameter(L.normal(
             gen, (cfg.padded_vocab, cfg.d_model), 0.02, dev, f32),
@@ -297,7 +331,7 @@ class CausalLM(nn.Module):
         (S_total = P + S); an encoder-decoder takes ``frames``
         (B,enc_seq,d) for its encoder."""
         cfg = self.cfg
-        x = self.embed[tokens].to(self.dtype)
+        x = L.hooks().embed_rows(self.embed, tokens).to(self.dtype)
         if cfg.n_img_tiles:
             if img_embeds is None:
                 raise ValueError(f"{cfg.name} needs img_embeds")
@@ -309,6 +343,8 @@ class CausalLM(nn.Module):
             enc_out = self.encode(frames)
             x = x + self.dec_pos[:x.shape[1]].to(self.dtype)
         for i, block in enumerate(self.blocks):
+            if i == self.n_prefix:
+                x = _constrain_sp(x)
             if i < self.n_prefix:     # each prefix block alone
                 x = block(x)[0]
             elif enc_out is not None:
@@ -324,7 +360,7 @@ class CausalLM(nn.Module):
         x32 = None
         for i in range(first, first + self.period):
             x, x32 = self.blocks[i](x, x32, stacked=True)
-        return x
+        return _constrain_sp(x)
 
     def _decoder_layer(self, i: int, x: torch.Tensor,
                        enc_out: torch.Tensor) -> torch.Tensor:
@@ -332,7 +368,7 @@ class CausalLM(nn.Module):
         ``i``, then its cross-attention, whose norm reads the block's
         float32 sum (the next block reads the rounded carry)."""
         x, x32 = self.blocks[i](x, None, stacked=True)
-        return self.cross[i](x, x32, enc_out)[0]
+        return _constrain_sp(self.cross[i](x, x32, enc_out)[0])
 
     def _x32(self, i: int, x32: torch.Tensor) -> Optional[torch.Tensor]:
         """What block ``i`` reads of the previous block's float32 sum: the
@@ -345,9 +381,11 @@ class CausalLM(nn.Module):
     def logits_fn(self, hidden: torch.Tensor) -> torch.Tensor:
         """float32 hidden @ float32 head (the tied embedding's transpose),
         the padded vocabulary tail set to -1e30."""
-        head = self.embed.T if self.head is None else self.head
-        logits = hidden.to(torch.float32) @ head
-        if self.cfg.padded_vocab != self.cfg.vocab:
+        head = self.head
+        if head is None:
+            head = self.embed.T
+        logits = hidden.to(torch.float32) @ head.to(torch.float32)
+        if logits.shape[-1] > self.cfg.vocab:    # (a shard's slice: none)
             logits[..., self.cfg.vocab:] = L.NEG_INF
         return logits
 
@@ -355,7 +393,8 @@ class CausalLM(nn.Module):
                 img_embeds: Optional[torch.Tensor] = None,
                 frames: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Full forward → logits of the last position (B,1,V)."""
-        return self.logits_fn(self.forward(tokens, img_embeds, frames)[:, -1:])
+        return self.logits_fn(L.hooks().last_position(
+            self.forward(tokens, img_embeds, frames)))
 
     def loss_fn(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         """The reference's ``loss_fn``: next-token cross entropy of
@@ -366,12 +405,14 @@ class CausalLM(nn.Module):
         tokens = batch["tokens"]
         hidden = self.forward(tokens, batch.get("img_embeds"),
                               batch.get("frames"))
+        hidden = L.tp_in(hidden)
         if self.cfg.n_img_tiles:
             hidden = hidden[:, -tokens.shape[1]:]
-        logp = torch.log_softmax(self.logits_fn(hidden), dim=-1)
+        logp = L.hooks().vocab_log_softmax(self.logits_fn(hidden))
         targets = batch["targets"]
         mask = targets >= 0
-        nll = -logp.gather(-1, targets.clamp(min=0)[..., None])[..., 0]
+        nll = -L.hooks().vocab_take(logp,
+                                    targets.clamp(min=0).to(torch.int64))
         return (nll * mask).sum() / mask.sum().clamp(min=1)
 
     # -- serving -----------------------------------------------------------
@@ -417,15 +458,18 @@ class CausalLM(nn.Module):
         place: each layer's rows or state are written and ``length`` becomes
         ``length + 1``; the same dict is returned."""
         length = cache["length"]
-        x = self.embed[tokens].to(self.dtype)
+        x = L.hooks().embed_rows(self.embed, tokens).to(self.dtype)
         if self.cfg.enc_layers:       # learned positions, clipped to the table
             row = length.to(torch.int64).clamp(0, DEC_POS_ROWS - 1)
             x = x + self.dec_pos.to(self.dtype)[row][:, None]
+        enc_out = None
+        if self.cfg.enc_layers:       # a shard program's cache splits d
+            enc_out = L.hooks().cache_enc_out(cache["enc_out"])
         x32 = None
         for i, (block, c) in enumerate(zip(self.blocks, cache["layers"])):
             x, x32 = block.decode(x, self._x32(i, x32), c, length)
-            if self.cfg.enc_layers:
-                x, x32 = self.cross[i](x, x32, cache["enc_out"])
+            if enc_out is not None:
+                x, x32 = self.cross[i](x, x32, enc_out)
                 x32 = None            # the next block reads the carry
         x = L.rmsnorm(x, self.final_norm, self.cfg.norm_eps)
         logits = self.logits_fn(x)

@@ -16,9 +16,8 @@ backward pass, ``CausalLM.forward``), and ``adamw_update`` upcasts them
 leaf by leaf.
 
 The reference's GSPMD sharding rules (``_spec_for``, ``param_shardings``,
-``state_shardings``, ``batch_shardings``) are JAX ``PartitionSpec``s for
-its production mesh; they belong with ``launch/``'s model half (ROADMAP.md,
-queue 1 item 5).
+``state_shardings``, ``batch_shardings``) are the port's shard layouts in
+``launch/sharding.py``, beside the dry run that uses them.
 """
 from __future__ import annotations
 

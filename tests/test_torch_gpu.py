@@ -1180,3 +1180,68 @@ def test_sql_dry_run_on_card_takes_the_card_branch(dev):
         0).total_memory
     cap = rec["cap"]
     assert rec["memory"]["temp_bytes"] > cap * 6 * (8 + 8 + 8)
+
+
+# ---------------------------------------------------------------------------
+# the model dry run's shard programs (launch/model_dryrun.py)
+# ---------------------------------------------------------------------------
+
+
+def test_dry_run_counts_decode_attention_by_its_formula_on_card(dev):
+    """On the card's build the wrapper still counts a tensor that holds no
+    data by its formula and launches nothing; a real card tensor launches
+    the kernel once, as before."""
+    from repro_torch.kernels.decode_attention import (
+        decode_attention, decode_attention_flops,
+    )
+    from repro_torch.launch.analysis import OpCounter
+    b, h, kvh, d, s = 2, 8, 4, 64, 300
+    lengths = torch.tensor([300, 17], dtype=torch.int32, device=dev)
+    before = build.launch_counts()["decode_attention"]
+    with OpCounter() as counter:
+        out = decode_attention(torch.empty(b, h, d, device="meta"),
+                               torch.empty(b, s, kvh, d, device="meta"),
+                               torch.empty(b, s, kvh, d, device="meta"),
+                               lengths.to("meta"))
+    assert out.is_meta and out.shape == (b, h, d)
+    assert counter.flops == decode_attention_flops((b, h, d), (b, s, kvh, d))
+    assert build.launch_counts()["decode_attention"] == before
+    g = torch.Generator(device=dev).manual_seed(3)
+    q = torch.randn(b, h, d, generator=g, device=dev)
+    k = torch.randn(b, s, kvh, d, generator=g, device=dev)
+    got = decode_attention(q, k, k, lengths)
+    assert build.launch_counts()["decode_attention"] == before + 1
+    torch.testing.assert_close(got, ref.decode_attention_ref(q, k, k, lengths),
+                               rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("kind", ["train", "prefill"])
+def test_shard_program_peak_on_card_within_its_prediction(dev, kind):
+    """A reduced llama3.2-3b cell's shard program on a (2, 4) mesh, run for
+    real on the card, peaks within 25% of the dry run's prediction (phase
+    6e's limit)."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.configs.base import Shape
+    from repro_torch.exchange.service import ShardMesh
+    from repro_torch.launch import dryrun
+    cfg = reduced(get_config("llama3.2-3b"))
+    shape = Shape("train_4k", 2048, 16, "train") if kind == "train" \
+        else Shape("prefill_32k", 4096, 16, "prefill")
+    axes = (("data", 2), ("model", 4))
+    pred = dryrun.model_record(
+        "llama3.2-3b", shape.name, False, cfg=cfg, shape=shape,
+        mesh=ShardMesh(axes, torch.device("meta")))["memory"][
+            "resident_bytes_per_chip"]
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _, _, cell = dryrun.lower_cell("llama3.2-3b", shape.name, False, cfg=cfg,
+                                   shape=shape, mesh=ShardMesh(axes, dev),
+                                   device=dev, sample=False, seed=5)
+    out = cell.run(None)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    assert all(torch.isfinite(o).all() for o in
+               (out if isinstance(out, tuple) else (out,)))
+    assert abs(peak / pred - 1) <= 0.25, (peak, pred)

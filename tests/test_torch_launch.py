@@ -20,14 +20,16 @@ reference, on the CPU.
 * Every fragment against the plain global answer (``sql_data.py``), as
   ``chip_smoke.py`` phase 5e holds them on the card.
 * ``extra`` at the reference's own SF100 on 256 and 2 x 256 shards; the
-  dry-run CLI's sweep: ten SQL records with the reference's caps, the
-  model cells ``not_ported``.
+  dry-run CLI's sweep of the SQL cells: ten records with the reference's
+  caps; a model cell's record (``tests/test_torch_launch_models.py``
+  holds the model cells against the reference).
 * Units: ``CountingMesh``'s bytes by kind, ``OpCounter``'s traffic,
   element operations and peak, the indexing routes of ``fake_cuda``, the
   static tier on sharded frames against one shard at a time, and
   fixed-point sums of several columns.
 """
 import json
+from pathlib import Path
 
 import jax  # noqa: F401 — both packages in one process, JAX on the CPU
 import numpy as np
@@ -235,7 +237,8 @@ MEMORY_KEYS = {"argument_bytes", "output_bytes", "temp_bytes",
 
 
 def test_dryrun_sweep_writes_every_cell(tmp_path, ref):
-    assert dryrun.main(["--sweep", "--outdir", str(tmp_path)]) == 0
+    assert dryrun.main(["--sweep", "--arch", dryrun.SQL_ARCH, "--jobs", "1",
+                        "--outdir", str(tmp_path)]) == 0
     records = [json.loads(p.read_text()) for p in tmp_path.glob("*.json")]
     sql = [r for r in records if r["arch"] == dryrun.SQL_ARCH]
     assert len(sql) == 10
@@ -255,17 +258,28 @@ def test_dryrun_sweep_writes_every_cell(tmp_path, ref):
         mem = r["memory"]
         assert mem["resident_bytes_per_chip"] > mem["argument_bytes"] > 0
         assert mem["card_bytes"] == dryrun.STATED_CARD_BYTES
-    models = [r for r in records if r["arch"] != dryrun.SQL_ARCH]
-    assert models and all(r["status"] == "not_ported" for r in models)
-    assert all("queue 1 item 5" in r["error"] for r in models)
-    assert {r["arch"] for r in models} >= {"llama3.2-3b", "phi3.5-moe-42b-a6.6b"}
+    assert len(records) == 10          # --arch keeps the sweep to the SQL
 
 
-def test_model_arch_is_not_ported():
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        dryrun.lower_cell("llama3.2-3b", "train_4k", False)
+MODEL_KEYS = {"arch", "shape", "mesh", "status", "model_params",
+              "active_params", "seq_len", "global_batch", "kind",
+              "flops_per_device", "flops_detail", "bytes_accessed_per_device",
+              "collective_bytes_per_device", "memory", "n_chips"}
+
+
+def test_model_cell_record_is_ok_with_the_reference_keys():
     rec = dryrun.run_cell("qwen3-4b", "decode_32k", True)
-    assert rec["status"] == "not_ported" and rec["mesh"] == "2x16x16"
+    assert rec["status"] == "ok" and rec["mesh"] == "2x16x16"
+    assert MODEL_KEYS <= set(rec) and MEMORY_KEYS <= set(rec["memory"])
+    assert rec["n_chips"] == 512 and rec["kind"] == "decode"
+    assert rec["seq_len"] == 32_768 and rec["global_batch"] == 128
+    assert set(rec["flops_detail"]) >= {"cost_analysis_flops",
+                                        "dot_flops_loop_corrected", "flops"}
+    coll = rec["collective_bytes_per_device"]
+    assert coll["total"] == sum(v for k, v in coll.items() if k != "total") > 0
+    mem = rec["memory"]
+    assert mem["resident_bytes_per_chip"] > mem["argument_bytes"] > 0
+    assert mem["fits_card"] and mem["card_bytes"] == dryrun.STATED_CARD_BYTES
 
 
 def test_dryrun_cli_writes_a_record(tmp_path):
@@ -280,7 +294,35 @@ def test_dryrun_cli_writes_a_record(tmp_path):
                                                   "total": 432.0}
     assert rec["memory"]["output_bytes"] == 216
     assert dryrun.main(["--arch", "qwen3-4b", "--shape", "train_4k",
-                        "--mesh", "pod", "--outdir", str(tmp_path)]) == 1
+                        "--mesh", "pod", "--outdir", str(tmp_path)]) == 0
+    rec = json.loads((tmp_path / "qwen3-4b__train_4k__16x16.json").read_text())
+    assert rec["status"] == "ok" and rec["kind"] == "train"
+
+
+GOLDEN_MODELS = Path(__file__).parent / "golden" / "dryrun_models_pod.json"
+
+
+@pytest.mark.parametrize(
+    "cell", sorted(json.loads(GOLDEN_MODELS.read_text())["cells"]))
+def test_phase_6e_golden_counts_equal_this_run(cell):
+    """``chip_smoke.py`` phase 6e holds the card's dry run of these cells to
+    this file; it must be this tree's counts.  Regenerate it with
+    ``python -c "import json, torch, chip_smoke as cs; from
+    repro_torch.launch import dryrun, model_dryrun as md; json.dump({'torch':
+    torch.__version__.split('+')[0], 'cells': {f'{a} {s}':
+    md.counts(dryrun.model_record(a, s, False)) for a, s in
+    cs.MODEL_DRY_CELLS}}, open(cs.MODEL_DRY_GOLDEN, 'w'), indent=1,
+    sort_keys=True)"`` (``PYTHONPATH=src`` from the repository's root)."""
+    from repro_torch.launch import model_dryrun
+    arch, shape = cell.split()
+    golden = json.loads(GOLDEN_MODELS.read_text())
+    want = golden["cells"][cell]
+    got = json.loads(json.dumps(model_dryrun.counts(
+        dryrun.model_record(arch, shape, False))))
+    same = torch.__version__.split("+")[0] == golden["torch"]
+    assert model_dryrun.counts_differ(got, want, same) == {}
+    if same:
+        assert got == want
 
 
 def test_meshes():

@@ -203,7 +203,21 @@ nothing of JAX or of the JAX package ``repro``, and:
    card (pieces drawn from ``serve_lm``'s seed, the collectives returning
    tensors of their result's shape), each measured peak within
    ``MODEL_PEAK_RTOL`` of the record's ``resident_bytes_per_chip``;
-7. prints the kernels' JSON line, then as its last line
+7. drives the reference's public surface as the port's entry points
+   (``run_examples``): ``repro_torch.quickstart.main`` at SF 0.01 with the
+   kernels, its SQL result and hand-built revenues held against the eager
+   ``use_kernels=False`` engine on the card as in phase 4, Q3's SQL path
+   equal to its plan, the kernel hits equal to the CPU run's
+   (``QUICKSTART_HITS``, pinned against the reference by
+   ``tests/test_torch_examples.py``) and the fallback over a table only
+   the host holds on the host with ``s == 6``; ``distributed_query.main``
+   on 8 logical shards at SF 0.005, its row counts ``EXAMPLE_ROWS`` and the
+   recovered Q3's revenues against ``FallbackEngine``'s (rtol 1e-6), no
+   recovery and every node live, as on the CPU; ``trace_report`` on Q3 at 4
+   shards, which must exit 0 (its three verifications, the reference's
+   tolerances).  It prints each part's ms, the trace report's two margins
+   and the phase's seconds; the parts' printed text goes to ``build/``;
+8. prints the kernels' JSON line, then as its last line
    ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero before that last line.  Without a CUDA device,
@@ -457,6 +471,10 @@ MODEL_DRY_CELLS = (("llama3.2-3b", "train_4k"), ("llama3.2-3b", "decode_32k"),
 MODEL_DRY_GOLDEN = "tests/golden/dryrun_models_pod.json"
 MODEL_REAL_CELLS = (("llama3.2-3b", "train_4k"), ("llama3.2-3b", "prefill_32k"))
 MODEL_PEAK_RTOL = 0.25
+# phase 7: the quickstart's kernel hits at its SF 0.01 (the reference's,
+# on the CPU) and the distributed example's row counts per query
+QUICKSTART_HITS = {"filter": 10, "probe": 6, "agg": 9}
+EXAMPLE_ROWS = {1: 4, 3: 10, 6: 1, 12: 2}
 
 
 def emit(obj) -> None:
@@ -3300,6 +3318,102 @@ def run_model_launch(card: str, dev) -> dict:
     return result
 
 
+def _captured(name: str, fn, *args, **kw) -> tuple:
+    """Run ``fn`` with its printed text sent to ``build/chip_smoke_<name>.txt``
+    → (its result, its ms)."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    t = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            out = fn(*args, **kw)
+    finally:
+        (ROOT / "build").mkdir(exist_ok=True)
+        (ROOT / "build" / f"chip_smoke_{name}.txt").write_text(buf.getvalue())
+    return out, (time.perf_counter() - t) * 1e3
+
+
+def _margin(a: float, b: float, frac: float, slack: float) -> float:
+    """|a - b| over the trace report's tolerance: at most 1 passes."""
+    return abs(a - b) / (frac * max(a, b) + slack)
+
+
+def run_examples(card: str, dev) -> dict:
+    """Phase 7: the quickstart, the distributed example and the trace
+    report, each through its entry point on the card (module docstring)."""
+    from repro_torch import distributed_query, quickstart, trace_report
+    from repro_torch.core.executor import SiriusEngine
+    from repro_torch.data.tpch import generate, load_into_engine
+    from repro_torch.kernels import build
+
+    t_phase = time.perf_counter()
+    build.reset_launch_counts()
+    qs, qs_ms = _captured("quickstart", quickstart.main, device=dev)
+    qs_launches = build.launch_counts()
+    eager = SiriusEngine(compile_pipelines=False, device=dev)
+    load_into_engine(eager, generate(quickstart.SF))
+    rows = {k: np.array([r[k] for r in qs["rows"]]) for k in qs["rows"][0]}
+    sql_err = compare_tables(rows, eager.sql(quickstart.SQL).to_host())
+    want = eager.execute(quickstart.revenue_plan()).to_host()["revenue"]
+    np.testing.assert_allclose(qs["revenues"], want, rtol=1e-6, atol=1e-6)
+    if not qs["q3_same"]:
+        raise AssertionError("quickstart: Q3's SQL path differs from its plan")
+    if qs["hits"] != QUICKSTART_HITS:
+        raise AssertionError(f"quickstart hits {qs['hits']} != {QUICKSTART_HITS}")
+    if (qs["fallback"]["route"], qs["fallback"]["s"]) != ("fallback", 6.0):
+        raise AssertionError(f"quickstart fallback {qs['fallback']}")
+    missing = [k for k in ("filter_mask_counts", "hash_probe", "groupby_sum")
+               if not qs_launches[k]]
+    if missing:
+        raise AssertionError(f"quickstart launched no {missing}")
+    del eager
+
+    dq, dq_ms = _captured("distributed_query", distributed_query.main,
+                          device=dev)
+    got_rows = {q: r["rows"] for q, r in dq["queries"].items()}
+    if got_rows != EXAMPLE_ROWS:
+        raise AssertionError(f"distributed_query rows {got_rows}")
+    rec = dq["recovered"]
+    np.testing.assert_allclose(rec["revenue"], rec["want"], rtol=1e-6)
+    if (rec["recoveries"], rec["live_nodes"]) != (0, list(range(8))):
+        raise AssertionError(f"distributed_query recovery {rec}")
+
+    tr, tr_ms = _captured("trace_report", trace_report.run, [
+        "--shards", "4", "--qid", "3", "--device", str(dev),
+        "--chrome", str(ROOT / "build" / "chip_smoke_trace_report.json")])
+    if tr["code"] != 0:
+        raise AssertionError(f"trace_report failed: {tr['failures']}")
+    tol = (trace_report.TOLERANCE_FRAC, trace_report.TOLERANCE_S)
+    counts = build.launch_counts()
+    result = {
+        "quickstart": {"ms": qs_ms, "sql_max_rel_err": sql_err[0],
+                       "wire_bytes": qs["wire_bytes"],
+                       "compiler": qs["compiler"], "hits": qs["hits"],
+                       "fallback": qs["fallback"],
+                       "q6_cold_ms": qs["q6_cold_ms"],
+                       "q6_hot_ms": qs["q6_hot_ms"]},
+        "distributed_query": {
+            "ms": dq_ms, "rows": got_rows,
+            "timers_ms": {q: {k: r["timers"].get(k, 0.0) * 1e3
+                              for k in ("compute", "exchange", "other")}
+                          for q, r in dq["queries"].items()},
+            "recoveries": rec["recoveries"], "live_nodes": rec["live_nodes"]},
+        "trace_report": {
+            "ms": tr_ms, "root_ms": tr["root_s"] * 1e3,
+            "total_ms": tr["total_s"] * 1e3, "span_ms": tr["span_s"] * 1e3,
+            "profile_ms": tr["profile_s"] * 1e3,
+            "root_margin": _margin(tr["root_s"], tr["total_s"], *tol),
+            "span_margin": _margin(tr["span_s"], tr["profile_s"], *tol)},
+        "launches": {k: counts.get(k, 0) for k in REPLACES},
+        "seconds": time.perf_counter() - t_phase}
+    for part in ("quickstart", "distributed_query", "trace_report"):
+        emit({"phase": f"examples_{part}", "card": card, **result[part]})
+    emit({"phase": "examples", "card": card, "seconds": result["seconds"],
+          "launches": result["launches"]})
+    return result
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke.py: src/repro_torch not found beside the script",
@@ -3376,6 +3490,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     report["model_launch"] = phase("6e_model_launch", run_model_launch, card,
                                    dev)
+    torch.cuda.empty_cache()
+    report["examples"] = phase("7_examples", run_examples, card, dev)
     seconds["total"] = time.perf_counter() - T_START
     emit({"phase": "seconds", **seconds})
     by_path = {"tpch": report["main_path"]["launches"],
@@ -3391,7 +3507,8 @@ def main() -> int:
                **{f"lm_serve/{arch}": r["launches"]
                   for arch, r in report["lm_encdec"].items()},
                "training": report["training"]["launches"],
-               "model_launch": report["model_launch"]["launches"]}
+               "model_launch": report["model_launch"]["launches"],
+               "examples": report["examples"]["launches"]}
     line = []
     for row in kernels:
         name = row["name"]

@@ -54,7 +54,7 @@ import threading
 import time
 import weakref
 from collections import defaultdict
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional
 
 import torch
 
@@ -74,7 +74,7 @@ from .pipeline_compiler import FusedSegment, PipelineCompiler
 from .plan_cache import ExecutablePlan, PlanCache, RecordedPipeline, plan_signature
 from .plan import (
     AggregateRel, ExchangeRel, FetchRel, FilterRel, JoinRel, ProjectRel,
-    ReadRel, Rel, ScalarSubquery, SortRel, explain, walk,
+    ReadRel, Rel, ScalarSubquery, SortRel, explain, walk, walk_deep,
 )
 
 
@@ -255,8 +255,9 @@ class FetchSink(_Sink):
 
 class PlanNotLowerable(TypeError):
     """The device engine has no pipeline operator for a rel (WindowRel,
-    SetRel).  Raised by ``PlanLowering`` before any pipeline of the plan
-    runs; the only error ``execute_with_fallback`` degrades on."""
+    SetRel), or the plan reads a table that only the host holds.  Raised
+    before any pipeline of the plan runs; the only error
+    ``execute_with_fallback`` degrades on."""
 
 
 @dataclasses.dataclass
@@ -382,6 +383,10 @@ class PipelineExecutor:
         self.op_times: Dict[str, float] = defaultdict(float)
         # plans that ``SiriusEngine.execute_with_fallback`` ran on the host
         self.fallback_queries = 0
+        # whether a table the buffer manager lacks is held in host format
+        # (``SiriusEngine`` asks its ``host_tables``): a plan that reads one
+        # is not lowerable
+        self.host_only: Callable[[str], bool] = lambda name: False
         # executable-plan cache: signature → recorded pipelines + prepared
         # stages + scalar-pull schedule (+ the captured graph on the card).
         # The hybrid router flips ``cache_enabled`` off around fragments
@@ -592,6 +597,7 @@ class PipelineExecutor:
         (``PlanLowering`` emits dependencies first, so that *is* a
         topological order): the scalar recording is thread-local and the
         replayed pull sequence must be deterministic."""
+        self._check_sources(plan)
         self._prepare(plan)
         lowering = PlanLowering(self.backend)
         final = lowering.lower(plan)
@@ -819,10 +825,12 @@ class PipelineExecutor:
                       for (n, kind, dct), t in zip(gr.out_meta, outs)})
 
     def _entry_fresh(self, entry: ExecutablePlan) -> bool:
-        """True while every table the entry scans is still the generation
-        the recording read (epoch-checked so direct ``cache_table``
-        re-caches, which bypass ``register``, invalidate replays too)."""
-        return all(self.buffers.table_epochs.get(n, 0) == e
+        """True while every table the entry scans is still cached and the
+        generation the recording read (epoch-checked so direct
+        ``cache_table`` re-caches, which bypass ``register``, invalidate
+        replays too; a dropped table's replay would read freed data)."""
+        return all(self.buffers.has(n)
+                   and self.buffers.table_epochs.get(n, 0) == e
                    for n, e in entry.epochs.items())
 
     def replay_signature(self, sig: str) -> Optional[Table]:
@@ -851,8 +859,21 @@ class PipelineExecutor:
                       **self.buffers.watermarks())
         return out
 
+    def _check_sources(self, plan: Rel) -> None:
+        """The lowering's first step, ahead of ``_prepare`` (which runs
+        scalar subqueries): a plan that reads a table the buffer manager
+        does not hold but the host does (``host_only``) is not lowerable,
+        so nothing of it launches.  A table neither holds raises
+        ``BufferError`` at its scan."""
+        for rel in walk_deep(plan):
+            if (isinstance(rel, ReadRel) and not self.buffers.has(rel.table)
+                    and self.host_only(rel.table)):
+                raise PlanNotLowerable(
+                    f"table {rel.table!r} is held only on the host")
+
     # -- the uncached path ------------------------------------------------------
     def _execute_inner(self, plan: Rel) -> Table:
+        self._check_sources(plan)
         self._prepare(plan)
         lowering = PlanLowering(self.backend)
         final = lowering.lower(plan)
@@ -1168,6 +1189,7 @@ class SiriusEngine:
                                          backend, profile=profile,
                                          compile_pipelines=compile_pipelines,
                                          metrics=self.metrics)
+        self.executor.host_only = lambda name: name in self.host_tables
         # journal query ID of the most recent front-door call (sql,
         # accelerate, execute): how a caller finds its span tree in JOURNAL
         self.last_query_id: Optional[str] = None
@@ -1412,9 +1434,11 @@ class SiriusEngine:
         Returns ``(result, route)``: a device ``Table`` and
         ``"accelerator"``, or a host dict and ``"fallback"`` (counted in
         ``executor.fallback_queries``).  Unlike the reference, which
-        degrades on any exception, only ``PlanNotLowerable`` (raised before
-        any pipeline of the plan runs) degrades: a kernel build or launch
-        error, or a CUDA error, propagates."""
+        degrades on any exception, only ``PlanNotLowerable`` (a rel the
+        device has no operator for, or a table held only in
+        ``host_tables``; raised before any pipeline of the plan runs)
+        degrades: a kernel build or launch error, or a CUDA error,
+        propagates."""
         try:
             return self.execute(plan), "accelerator"
         except PlanNotLowerable:

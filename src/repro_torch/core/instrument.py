@@ -49,6 +49,11 @@ class TransferCounter:
             if in_pipeline:
                 self.in_pipeline += 1
 
+    def reset(self) -> None:
+        with self._lock:
+            self.total = 0
+            self.in_pipeline = 0
+
 
 class _SyncCounter:
     """Thread-safe counter for host waits."""

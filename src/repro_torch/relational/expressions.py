@@ -287,6 +287,10 @@ def and_all(conjuncts: Sequence[Expr]) -> Optional[Expr]:
 # evaluation
 # ---------------------------------------------------------------------------
 
+# the reference's public name here; LIKE's one (escape-aware)
+# implementation is ``strings.like_to_regex``
+like_to_regex = strings.like_to_regex
+
 # python operators, so a weak scalar may stand on either side
 _ARITH = {"+": operator.add, "-": operator.sub, "*": operator.mul,
           "/": operator.truediv}

@@ -81,6 +81,11 @@ class Column:
                       dictionary)
 
     @staticmethod
+    def from_dates(values: Sequence[str]) -> "Column":
+        days = (np.asarray(values, dtype="datetime64[D]") - _EPOCH).astype(np.int32)
+        return Column(torch.from_numpy(days), DATE)
+
+    @staticmethod
     def from_numpy(arr: np.ndarray) -> "Column":
         if arr.dtype.kind in ("U", "S", "O"):
             return Column.from_strings(arr)
@@ -116,6 +121,9 @@ class Column:
         if self.kind == DATE:
             return _EPOCH + host.astype("timedelta64[D]")
         return host
+
+    def decode(self) -> np.ndarray:
+        return self.to_host()
 
     # -- dictionary bridging (string join keys across tables) ---------------
     def recode_to(self, target_dictionary: np.ndarray) -> "Column":
@@ -182,10 +190,16 @@ class Table:
     def select(self, names: Sequence[str]) -> "Table":
         return Table({n: self.columns[n] for n in names})
 
+    def rename(self, mapping: Dict[str, str]) -> "Table":
+        return Table({mapping.get(n, n): c for n, c in self.columns.items()})
+
     def with_column(self, name: str, col: Column) -> "Table":
         cols = dict(self.columns)
         cols[name] = col
         return Table(cols)
+
+    def drop(self, names: Sequence[str]) -> "Table":
+        return Table({n: c for n, c in self.columns.items() if n not in names})
 
     def take(self, idx: torch.Tensor) -> "Table":
         return Table({n: c.take(idx) for n, c in self.columns.items()})
@@ -228,6 +242,12 @@ class Table:
     # -- host conversion ------------------------------------------------------
     def to_host(self) -> Dict[str, np.ndarray]:
         return {n: c.to_host() for n, c in self.columns.items()}
+
+    def to_pylist(self) -> List[dict]:
+        host = self.to_host()
+        return [
+            {n: host[n][i] for n in self.column_names} for i in range(self.num_rows)
+        ]
 
     def __repr__(self) -> str:
         cols = ", ".join(

@@ -23,7 +23,7 @@ from typing import Dict, FrozenSet, Iterable, Optional
 
 from ..core.plan import (
     AggregateRel, ExchangeRel, FetchRel, FilterRel, JoinRel, ProjectRel,
-    ReadRel, Rel, ScalarSubquery, SortRel, rel_exprs,
+    ReadRel, Rel, ScalarSubquery, SetRel, SortRel, WindowRel, rel_exprs,
 )
 from ..relational.expressions import (
     Between, BinOp, Case, Cast, Col, Expr, ExtractYear, InList, Like, Lit,
@@ -83,6 +83,10 @@ BINOP_TO_FUNCTION: Dict[str, str] = {
 FUNCTION_TO_BINOP = {v: k for k, v in BINOP_TO_FUNCTION.items()}
 
 
+def function_uri(name: str) -> str:
+    return EXTENSION_URIS[FUNCTIONS[name]]
+
+
 # ---------------------------------------------------------------------------
 # capability registry (hybrid routing)
 # ---------------------------------------------------------------------------
@@ -98,6 +102,10 @@ DEVICE_RELS: FrozenSet[str] = frozenset(c.__name__ for c in (
 DEVICE_EXPRS: FrozenSet[str] = frozenset(c.__name__ for c in (
     Col, Lit, BinOp, UnOp, Between, InList, Like, StartsWith, Case,
     ExtractYear, Substr, Cast, ScalarSubquery))
+
+# The host fallback executes the full vocabulary.
+HOST_RELS: FrozenSet[str] = DEVICE_RELS | frozenset(
+    c.__name__ for c in (SetRel, WindowRel))
 
 
 class CapabilityRegistry:

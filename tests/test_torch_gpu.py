@@ -1245,3 +1245,23 @@ def test_shard_program_peak_on_card_within_its_prediction(dev, kind):
     assert all(torch.isfinite(o).all() for o in
                (out if isinstance(out, tuple) else (out,)))
     assert abs(peak / pred - 1) <= 0.25, (peak, pred)
+
+
+def test_quickstart_fallback_on_card(dev):
+    """A table only the host holds runs on the host, launching nothing;
+    once registered, the same plan runs on the card through the kernels."""
+    from repro_torch import quickstart
+    from repro_torch.core.executor import SiriusEngine
+    from repro_torch.relational import Table
+    eng = SiriusEngine(use_kernels=True, device=dev)
+    mystery = {"x": np.arange(4.0)}
+    eng.host_tables["mystery"] = mystery
+    launches = build.launch_counts()
+    res, route = eng.execute_with_fallback(quickstart.fallback_plan())
+    assert (route, float(res["s"][0])) == ("fallback", 6.0)
+    assert build.launch_counts() == launches
+    assert eng.executor.fallback_queries == 1
+    eng.register("mystery", Table.from_pydict(mystery), host_data=mystery)
+    out, route = eng.execute_with_fallback(quickstart.fallback_plan())
+    assert route == "accelerator" and out["s"].data.device.type == "cuda"
+    assert float(out.to_host()["s"][0]) == 6.0

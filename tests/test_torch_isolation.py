@@ -49,7 +49,8 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
         "repro_torch.configs.llava_next_mistral_7b, repro_torch.training, "
         "repro_torch.training.optimizer, repro_torch.training.train_step, "
         "repro_torch.train_lm, repro_torch.launch.sharding, "
-        "repro_torch.launch.model_dryrun\n"
+        "repro_torch.launch.model_dryrun, repro_torch.quickstart, "
+        "repro_torch.distributed_query, repro_torch.trace_report\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
         "print(','.join(bad))\n")

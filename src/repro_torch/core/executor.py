@@ -171,6 +171,7 @@ class _Result:
 
     def __init__(self):
         self.table: Optional[Table] = None
+        self.producer: Optional[str] = None   # the breaker's sink class
 
 
 class _Sink:
@@ -178,6 +179,7 @@ class _Sink:
 
     def __init__(self, result: _Result):
         self.result = result
+        result.producer = type(self).__name__
         self.parts: List[Table] = []
 
     def push(self, t: Table) -> None:
@@ -343,6 +345,28 @@ class PlanLowering:
 # ---------------------------------------------------------------------------
 # executor
 # ---------------------------------------------------------------------------
+
+
+class _PipelineSpans:
+    """The journal spans of one pipeline's run, named once when its stages
+    are prepared, so that a replay formats nothing: ``pipeline`` (its
+    index, source table or breaker, and sink class), ``op.scan``, one
+    ``op.<category>`` a stage and ``sink.<category>``, each with the
+    stage's or sink's name as attribute ``op``."""
+
+    __slots__ = ("attrs", "stages", "sink")
+
+    def __init__(self, p: Pipeline, stages):
+        src = p.source
+        self.attrs = {"index": p.pid,
+                      "source": (src.table if isinstance(src, ReadRel)
+                                 else src.producer),
+                      "sink": type(p.sink).__name__}
+        self.stages = []
+        for stage in stages:
+            name, category = PipelineExecutor._stage_name(stage)
+            self.stages.append(("op." + category, name))
+        self.sink = ("sink." + p.sink.category, type(p.sink).__name__)
 
 
 class _GraphReplay:
@@ -634,20 +658,34 @@ class PipelineExecutor:
             # never join the replay schedule (warm runs skip prepare)
             with instrument.pulls_suspended():
                 stages = self.compiler.prepare(ops, self.backend)
+            spans = _PipelineSpans(p, stages)
             with instrument.scalar_recording(values):
-                src = self._source_table(p.source,
-                                         skip_filter=fuse_scan_filter)
-                approx_bytes = max(src.nbytes, 1)
-                self.buffers.alloc_processing(approx_bytes)
-                try:
-                    t = src
-                    for stage in stages:
+                self._drive(p, stages, spans, fuse_scan_filter)
+        return RecordedPipeline(p, stages, values, fuse_scan_filter, spans)
+
+    def _drive(self, p: Pipeline, stages, spans: _PipelineSpans,
+               skip_filter: bool) -> None:
+        """One pipeline's source, stages and sink, each in its journal
+        span.  The cold run that records an entry, the closure replay and
+        the walk a graph capture records all run pipelines here, so cold
+        and warm runs name the same spans."""
+        span = JOURNAL.span
+        with span("pipeline", "pipeline", **spans.attrs):
+            with span("op.scan", "operator"):
+                src = self._source_table(p.source, skip_filter=skip_filter)
+            approx_bytes = max(src.nbytes, 1)
+            self.buffers.alloc_processing(approx_bytes)
+            try:
+                t = src
+                for stage, (name, op) in zip(stages, spans.stages):
+                    with span(name, "operator", op=op):
                         t = stage(t)
+                name, op = spans.sink
+                with span(name, "sink", op=op):
                     p.sink.push(t)
                     p.sink.finalize()
-                finally:
-                    self.buffers.free_processing(approx_bytes)
-        return RecordedPipeline(p, stages, values, fuse_scan_filter)
+            finally:
+                self.buffers.free_processing(approx_bytes)
 
     def _replay_core(self, entry: ExecutablePlan, flags: List) -> Table:
         """Warm-path body: the loop over already-prepared closures.
@@ -662,19 +700,8 @@ class PipelineExecutor:
             p.sink.reset()
             with instrument.pipeline_scope():
                 with instrument.scalar_replay(rp.values, flags):
-                    src = self._source_table(p.source,
-                                             skip_filter=rp.fuse_scan_filter)
-                    approx_bytes = max(src.nbytes, 1)
-                    self.buffers.alloc_processing(approx_bytes)
-                    try:
-                        t = src
-                        for stage in rp.stages:
-                            t = stage(t)
-                        p.sink.push(t)
-                        p.sink.finalize()
-                        p.sink.reset()
-                    finally:
-                        self.buffers.free_processing(approx_bytes)
+                    self._drive(p, rp.stages, rp.spans, rp.fuse_scan_filter)
+                    p.sink.reset()
         out = entry.final.sink.result.table
         self._release(entry)
         return out
@@ -1058,15 +1085,25 @@ class PipelineExecutor:
                                  seconds)
 
     @staticmethod
+    def _stage_name(stage):
+        """A stage's name and category, the program's own: a fused
+        region's description under ``fused``, an eager op's class under
+        its ``category``."""
+        if isinstance(stage, FusedSegment):
+            return stage.describe(), "fused"
+        return type(stage).__name__, getattr(stage, "category", "other")
+
+    @staticmethod
     def _stage_telemetry(stage):
         """Name, category and attributes of a pipeline stage, read *after*
         its timer stopped.  A fused region also reports its cache hit,
         whether it degraded to its eager ops, and its cost estimate
         (``est_flops`` / ``est_bytes``, ``_CompiledRegion.cost_summary``),
         computed here, outside the stage's wall-clock window."""
+        name, category = PipelineExecutor._stage_name(stage)
+        attrs = {}
         if isinstance(stage, FusedSegment):
             info = stage.last_call_info or {}
-            attrs = {}
             if "cache_hit" in info:
                 attrs["cache_hit"] = bool(info["cache_hit"])
             if info.get("degraded"):
@@ -1074,8 +1111,7 @@ class PipelineExecutor:
             region = info.get("region")
             if region is not None and "cost_args" in info:
                 attrs.update(region.cost_summary(*info["cost_args"]))
-            return stage.describe(), "fused", attrs
-        return type(stage).__name__, getattr(stage, "category", "other"), {}
+        return name, category, attrs
 
     def _run_analyzed(self, p: Pipeline, src: Table, stages,
                       rec: PipelineProfile, builder: ProfileBuilder) -> None:

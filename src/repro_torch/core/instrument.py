@@ -8,7 +8,8 @@ mirrored into ``observability.METRICS``:
   (``.item()`` on a tensor), and each such read is counted;
 * ``sync_barriers`` — the executor's explicit barriers
   (``torch.cuda.synchronize()`` at the final sink, or per operator in
-  ``profile=True`` mode), counted through ``count_sync``.
+  ``profile=True`` mode), counted through ``count_sync``; each is also
+  the query journal's ``executor.barrier`` span.
 
 ``pipeline_scope`` marks worker threads that are executing a pipeline, and
 ``track_transfers`` counts device→host copies of tensors inside and outside
@@ -32,6 +33,7 @@ from typing import Iterator
 
 import torch
 
+from ..observability.journal import JOURNAL
 from ..observability.metrics import METRICS
 
 
@@ -83,9 +85,14 @@ def count_sync() -> None:
 
 
 def barrier(device: torch.device) -> None:
-    """Wait for ``device`` to finish its queued work, and count the wait."""
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+    """Wait for ``device`` to finish its queued work, and count the wait.
+
+    The wait is the journal span ``executor.barrier``: in a warm replay it
+    splits ``plan_cache.replay`` into the host's dispatch (before it) and
+    the wait for the device (inside it)."""
+    with JOURNAL.span("executor.barrier", "sync"):
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
     count_sync()
 
 

@@ -331,6 +331,10 @@ class FusedSegment:
         self.aux = tuple(aux)
         # the items half of the cache key never changes for this segment
         self._items_sig = tuple(i.signature() for i in items)
+        kinds = {"_FusedFilter": "filter", "_FusedSelect": "select",
+                 "_FusedProject": "project", "_FusedProbe": "probe"}
+        self._description = "FusedRegion[" + "+".join(
+            kinds.get(type(i).__name__, "?") for i in items) + "]"
         # the last call's telemetry for the analyze path: the region,
         # whether it was a cache hit or degraded to the eager ops, and the
         # call's arguments for ``cost_summary`` (its rows in and out; the
@@ -339,10 +343,7 @@ class FusedSegment:
         self.last_call_info: Optional[dict] = None
 
     def describe(self) -> str:
-        kinds = {"_FusedFilter": "filter", "_FusedSelect": "select",
-                 "_FusedProject": "project", "_FusedProbe": "probe"}
-        return "FusedRegion[" + "+".join(
-            kinds.get(type(i).__name__, "?") for i in self.items) + "]"
+        return self._description
 
     def _eager(self, t: Table) -> Table:
         for op in self.eager_ops:
@@ -363,10 +364,8 @@ class FusedSegment:
                 d for item in self.items if isinstance(item, _FusedProbe)
                 for _, d in item._dicts()]
             self.compiler.cache[sig] = region
-            METRICS.counter("pipeline_compiler.cache_misses").inc()
         else:
             self.compiler.stats["cache_hits"] += 1
-            METRICS.counter("pipeline_compiler.cache_hits").inc()
         if region.failed:
             self.last_call_info = {"cache_hit": cache_hit, "degraded": True}
             return self._eager(t)
@@ -391,7 +390,6 @@ class FusedSegment:
             self.compiler.stats["trace_seconds"] += dt
             METRICS.histogram("pipeline_compiler.trace_seconds").observe(dt)
         self.compiler.stats["region_calls"] += 1
-        METRICS.counter("pipeline_compiler.region_calls").inc()
         k = pull_scalar(count)   # the region's single scalar pull
         self.last_call_info = {"cache_hit": cache_hit, "degraded": False,
                                "region": region,

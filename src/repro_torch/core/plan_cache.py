@@ -97,12 +97,13 @@ class RecordedPipeline:
     ``stages`` is the prepared callable list (fused regions + eager ops)
     from the cold run; ``values`` the scalar-pull recording; ``must_run``
     False marks dead replay work (results only live inside region
-    closures)."""
+    closures); ``spans`` the journal span names of a run, named once."""
 
     pipeline: object              # core.executor.Pipeline
     stages: List
     values: List
     fuse_scan_filter: bool
+    spans: object                 # core.executor._PipelineSpans
     must_run: bool = True
 
 

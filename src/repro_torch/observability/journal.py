@@ -217,12 +217,16 @@ class QueryJournal:
         elif span in st:          # tolerate out-of-order exits
             st.remove(span)
 
+    def _top(self) -> Optional[JournalSpan]:
+        """The innermost open span (or activated anchor) on this thread."""
+        st = getattr(self._local, "stack", None)
+        return st[-1] if st else None
+
     def current_context(self) -> Optional[TraceContext]:
         """The ambient (query_id, span_id) on this thread, or None."""
-        st = getattr(self._local, "stack", None)
-        if not st:
+        top = self._top()
+        if top is None:
             return None
-        top = st[-1]
         return TraceContext(query_id=top.query_id, span_id=top.span_id)
 
     @contextmanager
@@ -259,7 +263,7 @@ class QueryJournal:
         roots a fresh query tree with a newly minted query ID."""
         if not self.enabled:
             return _NOOP
-        cur = self.current_context()
+        cur = self._top()
         if cur is not None:
             return JournalSpan(self, name, attrs.pop("category", "engine"),
                                cur.query_id, next(self._ids), cur.span_id,
@@ -273,7 +277,7 @@ class QueryJournal:
         active on this thread (the journal records queries, not noise)."""
         if not self.enabled:
             return _NOOP
-        cur = self.current_context()
+        cur = self._top()
         if cur is None:
             return _NOOP
         return JournalSpan(self, name, category, cur.query_id,
@@ -283,7 +287,7 @@ class QueryJournal:
         """Zero-duration instant event under the ambient context."""
         if not self.enabled:
             return
-        cur = self.current_context()
+        cur = self._top()
         if cur is None:
             return
         self._commit({

@@ -1036,8 +1036,11 @@ def test_chrome_trace_of_an_engine_query_on_card(tpch_small):
     assert verify_tree(evs, eng.last_query_id) == []
     d = to_chrome(evs, epoch=JOURNAL.epoch)
     spans = [e for e in d["traceEvents"] if e["ph"] == "X"]
+    # a graph replay is one launch: no operator spans, one barrier
     assert {e["name"] for e in spans} == {"sql", "engine.execute",
-                                          "plan_cache.replay"}
+                                          "plan_cache.replay",
+                                          "executor.barrier"}
+    assert [e["name"] for e in evs].count("executor.barrier") == 1
     assert all(e["dur"] > 0 for e in spans)
     assert [e["args"]["name"] for e in d["traceEvents"]
             if e["ph"] == "M"] == ["coordinator"]

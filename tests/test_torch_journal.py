@@ -69,6 +69,10 @@ def _engine(db, **kw):
     return eng
 
 
+# the operator layer's spans, which the reference does not emit
+OPERATOR_SPANS = ("pipeline", "op.", "sink.", "executor.barrier")
+
+
 def _tree(events, query_id):
     """(name, category, depth) of each span and instant, depth first."""
     out = []
@@ -322,7 +326,11 @@ def test_front_doors_root_query_trees(small_db):
     """``sql`` roots ``engine.execute`` → ``plan_cache.record`` cold and
     ``engine.execute`` → ``plan_cache.replay`` warm; ``accelerate`` roots
     ``wire``; an analyzed run records nothing in the cache; every tree
-    passes ``verify_tree`` and the root's wall bounds its children."""
+    passes ``verify_tree`` and the root's wall bounds its children.  Under
+    the record and the closure replay each pipeline is a ``pipeline`` span
+    of ``op.scan``, ``op.<category>`` stages and a ``sink.<category>``,
+    the same names cold and warm, and the query's one barrier is an
+    ``executor.barrier`` span, the replay's last child."""
     eng = _engine(small_db, use_kernels=USE_KERNELS)
     text = SQL_QUERIES[6]
     eng.sql(text)
@@ -335,14 +343,38 @@ def test_front_doors_root_query_trees(small_db):
     analyzed = eng.last_query_id
     assert len({cold, warm, wire, analyzed}) == 4
     evs = JOURNAL.events()
-    assert _tree(evs, cold) == [("sql", "query", 0),
-                                ("engine.execute", "engine", 1),
-                                ("plan_cache.record", "cache", 2)]
-    assert _tree(evs, warm) == [("sql", "query", 0),
-                                ("engine.execute", "engine", 1),
-                                ("plan_cache.replay", "cache", 2)]
+    cold_tree, warm_tree = _tree(evs, cold), _tree(evs, warm)
+    assert cold_tree[:3] == [("sql", "query", 0),
+                             ("engine.execute", "engine", 1),
+                             ("plan_cache.record", "cache", 2)]
+    assert warm_tree[:3] == [("sql", "query", 0),
+                             ("engine.execute", "engine", 1),
+                             ("plan_cache.replay", "cache", 2)]
+    assert next(e for e in JOURNAL.events(warm) if e["name"] ==
+                "plan_cache.replay")["attrs"]["mode"] == "closure"
+    for tree in (cold_tree, warm_tree):
+        assert all(n.startswith(OPERATOR_SPANS) and d >= 3
+                   for n, _, d in tree[3:])
+        assert [t for t in tree if t[0] == "executor.barrier"] == \
+            [("executor.barrier", "sync", 3)]
+    assert warm_tree[-1] == ("executor.barrier", "sync", 3)
+    ops = [(n, c) for n, c, d in warm_tree if d == 4]
+    assert ops[0] == ("op.scan", "operator")
+    assert {n for n, _ in ops} >= {"op.scan", "op.fused", "sink.groupby"}
+    assert {("pipeline", "pipeline", 3)} == {
+        t for t in warm_tree if t[0] == "pipeline"}
+
+    def operator_spans(qid):
+        return {(e["name"], e["attrs"].get("op")) for e in JOURNAL.events(qid)
+                if e["name"].startswith(("op.", "sink."))}
+    assert operator_spans(cold) == operator_spans(warm)
+    pipe = next(e for e in JOURNAL.events(warm) if e["name"] == "pipeline")
+    assert pipe["attrs"]["source"] == "lineitem"
+    assert pipe["attrs"]["sink"] == "AggSink"
     assert _tree(evs, wire)[0] == ("wire", "query", 0)
     assert ("engine.execute", "engine", 1) in _tree(evs, wire)
+    # the analyzed run's pipelines and barriers run on worker threads,
+    # outside the query's context
     assert _tree(evs, analyzed) == [("engine.execute", "query", 0)]
     for qid in (cold, warm, wire, analyzed):
         assert verify_tree(evs, qid) == []
@@ -365,7 +397,8 @@ def test_front_doors_root_query_trees(small_db):
 
 def test_trees_name_the_references(small_db, tpch_db):
     """The same SQL, cold then warm, on both packages: the same span names,
-    categories and nesting."""
+    categories and nesting, over the names the reference emits (the port
+    adds its operator layer's spans beneath them)."""
     text = SQL_QUERIES[6]
     ref = RefEngine(use_kernels=USE_KERNELS)
     ref_load(ref, tpch_db)
@@ -373,8 +406,83 @@ def test_trees_name_the_references(small_db, tpch_db):
     for _ in range(2):
         ref.sql(text)
         port.sql(text)
-        assert _tree(JOURNAL.events(), port.last_query_id) == \
-            _tree(REF_JOURNAL.events(), ref.last_query_id)
+        want = _tree(REF_JOURNAL.events(), ref.last_query_id)
+        names = {n for n, _, _ in want}
+        got = _tree(JOURNAL.events(), port.last_query_id)
+        assert [t for t in got if t[0] in names] == want
+        assert all(n.startswith(OPERATOR_SPANS) for n, _, _ in got
+                   if n not in names)
+
+
+@pytest.mark.parametrize("use_kernels", [False, True],
+                         ids=["plain", "kernels"])
+@pytest.mark.parametrize("qid", [3, 13, 18])
+def test_operator_spans_name_each_pipeline_run(small_db, qid, use_kernels):
+    """Each ``pipeline`` span of a warm closure replay holds ``op.scan``
+    first, one ``op.<category>`` span a prepared stage (attribute ``op``,
+    the stage's own name) and its ``sink.<category>`` last, as the
+    recorded entry names them; the cold run names every pipeline it ran,
+    the replay those it must run."""
+    eng = _engine(small_db, use_kernels=use_kernels)
+    eng.sql(SQL_QUERIES[qid])
+    cold = eng.last_query_id
+    eng.sql(SQL_QUERIES[qid])
+    warm = eng.last_query_id
+    entry = eng.executor.plan_cache._entries[eng.executor.last_plan_signature]
+    evs = JOURNAL.events(warm)
+    by_parent = {}
+    for e in evs:
+        by_parent.setdefault(e["parent_id"], []).append(e)
+    pipes = sorted((e for e in evs if e["name"] == "pipeline"),
+                   key=lambda e: e["ts"])
+    ran = [rp for rp in entry.pipelines if rp.must_run]
+    assert [p["attrs"]["index"] for p in pipes] == \
+        [rp.pipeline.pid for rp in ran]
+    for pipe, rp in zip(pipes, ran):
+        kids = sorted(by_parent[pipe["span_id"]], key=lambda e: e["ts"])
+        names = [(k["name"], k["attrs"].get("op")) for k in kids]
+        sink = rp.pipeline.sink
+        assert names == [("op.scan", None), *rp.spans.stages,
+                         ("sink." + sink.category, type(sink).__name__)]
+        assert all(k["cat"] in ("operator", "sink") for k in kids)
+        assert pipe["attrs"]["sink"] == type(sink).__name__
+        src = rp.pipeline.source
+        assert pipe["attrs"]["source"] == getattr(src, "table", None) or \
+            pipe["attrs"]["source"] == src.producer
+    cold_pipes = [e for e in JOURNAL.events(cold) if e["name"] == "pipeline"]
+    assert {e["attrs"]["index"] for e in cold_pipes} == \
+        {rp.pipeline.pid for rp in entry.pipelines}
+    assert verify_tree(JOURNAL.events(), warm) == []
+
+
+def test_a_barrier_outside_a_query_is_counted_not_journaled():
+    """``instrument.barrier`` always counts its wait; its span lands only
+    under a query (the journal records queries, not noise)."""
+    n0, syncs0 = len(JOURNAL.events()), instrument.sync_barriers.value
+    instrument.barrier(torch.device("cpu"))
+    assert instrument.sync_barriers.value == syncs0 + 1
+    assert len(JOURNAL.events()) == n0
+    with JOURNAL.query_span("q") as root:
+        instrument.barrier(torch.device("cpu"))
+    tree = _tree(JOURNAL.events(), root.query_id)
+    assert tree == [("q", "query", 0), ("executor.barrier", "sync", 1)]
+
+
+def test_fused_regions_publish_no_per_call_counters(small_db):
+    """A fused region's call counts into ``compiler.stats`` only: nothing
+    read the per-call ``METRICS`` counters it used to publish."""
+    eng = _engine(small_db)
+    eng.execute(QUERIES[3]())
+    stats0 = dict(eng.compiler.stats)
+    snap0 = METRICS.snapshot()
+    eng.execute(QUERIES[3]())
+    assert eng.compiler.stats["region_calls"] > stats0["region_calls"]
+    assert eng.compiler.stats["cache_hits"] > stats0["cache_hits"]
+    snap = METRICS.snapshot()
+    for name in ("pipeline_compiler.cache_hits",
+                 "pipeline_compiler.cache_misses",
+                 "pipeline_compiler.region_calls"):
+        assert snap.get(name, 0) == snap0.get(name, 0) == 0
 
 
 def test_replay_mismatch_is_a_poison_event(small_db):
@@ -386,9 +494,11 @@ def test_replay_mismatch_is_a_poison_event(small_db):
     eng.execute(QUERIES[3]())
     assert not eng.executor.last_plan_cache_hit
     tree = _tree(JOURNAL.events(), eng.last_query_id)
-    assert [n for n, _, _ in tree] == ["engine.execute", "plan_cache.replay",
-                                       "plan_cache.poison",
-                                       "plan_cache.record"]
+    assert [n for n, _, _ in tree if not n.startswith(OPERATOR_SPANS)] == [
+        "engine.execute", "plan_cache.replay", "plan_cache.poison",
+        "plan_cache.record"]
+    # the replay reached its barrier, whose flags it then read
+    assert ("executor.barrier", "sync", 2) in tree
     assert verify_tree(JOURNAL.events(), eng.last_query_id) == []
 
 

@@ -15,7 +15,8 @@ nothing of JAX or of the JAX package ``repro``, and:
    (group, column): both sum in float64 in different orders and round to
    float32, and a relative tolerance fails on centred sums near zero.
    ``groupby_sum`` is held at Q1's call, at ClickBench q2's one-group
-   call and at Q3's first 4096-group call, ``hash_probe`` at Q3's second
+   call, at Q3's call at SF1 (16,384 groups) and at Q13's at SF10 (2^21),
+   the last two one-pass, ``hash_probe`` at Q3's second
    call (~1% hits, the rest the absent rank -2), at a 20%-hit case of the
    same size and at Q5's third call (every key hits), ``join_expand`` at
    both of Q5's calls and at a skewed case, over the whole bucket (filler
@@ -312,13 +313,15 @@ REPLACES = {
     "topk_select": "src/repro/kernels/topk.py:60",
     "decode_attention": "src/repro/kernels/decode_attention.py:68",
 }
-# the names of each kernel's grids, as torch.profiler reports them (and,
-# for groupby_sum, the two grids of its earlier design, so that
+# the names of each kernel's grids, as torch.profiler reports them (for
+# groupby_sum, the register/shared grid, the one-pass design's row and
+# finishing grids, and the two grids of its earlier design, so that
 # kernel_turns.py can time a checkout that has it; hash_probe_kernel is the
 # narrow grid of hash_probe and the only grid of its earlier design)
 DEVICE_NAMES = {
     "filter_mask_counts": ("filter_mask_counts_kernel",),
-    "groupby_sum": ("groupby_sum_kernel", "groupby_partial_kernel",
+    "groupby_sum": ("groupby_sum_kernel", "groupby_sum_wide_kernel",
+                    "groupby_sum_finish_kernel", "groupby_partial_kernel",
                     "groupby_merge_kernel"),
     "hash_probe": ("hash_probe_kernel", "hash_probe_wide_kernel"),
     "join_expand": ("join_expand_kernel",),
@@ -639,7 +642,7 @@ def _groupby_case(gids: np.ndarray, vals: np.ndarray, g: int, what: str,
     n, v = vals.shape
     gi = torch.from_numpy(gids).to(dev)
     va = torch.from_numpy(vals).to(dev)
-    got = ops.groupby_sum(gi, va, g)
+    got = ops.groupby_sum_large(gi, va, g)
     torch.cuda.synchronize()
     # the plain version sums in float64 and rounds once, as the kernel does
     want = ref.groupby_sum_ref(gi, va, g)
@@ -666,7 +669,7 @@ def _groupby_case(gids: np.ndarray, vals: np.ndarray, g: int, what: str,
         "max_err_over_sum_abs": float(rel),
         "tolerance": "column 0 (counts) exact; the others 2e-7 x sum|v| per "
                      "(group, column)",
-        **kernel_times("groupby_sum", lambda: ops.groupby_sum(gi, va, g)),
+        **kernel_times("groupby_sum", lambda: ops.groupby_sum_large(gi, va, g)),
         "plain_ms": cuda_ms(lambda: ref.groupby_sum_ref(gi, va, g)),
         # index_add_ takes only gids in range: timed on the rows the call keeps
         "library_ms": cuda_ms(lambda: torch.zeros(
@@ -686,10 +689,13 @@ def _centred_split(vals: np.ndarray, col: int, x: np.ndarray) -> None:
 def check_groupby(rng, dev) -> dict:
     """The row is Q1's call at SF1 (4 live groups); ClickBench q2's call at
     2,000,000 rows, where every row falls in one group (q0, q1, q20 and q43x
-    call it with one group too), and Q3's first 4096-group call (its 11,932
-    groups cut into 4096-group calls by groupby_sum_large; gids past the
-    call's groups dropped; the shared-memory path) go under
-    ``other_shapes``."""
+    call it with one group too), Q3's call at SF1 (11,932 groups, called
+    with G rounded up to 16,384) and Q13's inner group-by at SF10
+    (15,321,151 rows over 1,500,000 customers, G = 2^21), both above 4096
+    groups and so one-pass, go under ``other_shapes``.  Each is called
+    through ``groupby_sum_large``, as core/kernel_backend.py calls it, so
+    that ``kernel_turns.py`` times a checkout that cut G above 4096 into
+    4096-group calls on the same inputs."""
     n, v, g = 5_996_021, 15, 128       # Q1: 4 groups, called with G=128
     gids = rng.integers(0, 4, n).astype(np.int32)
     # the columns core/kernel_backend.py builds for Q1: a ones column, then
@@ -713,15 +719,23 @@ def check_groupby(rng, dev) -> dict:
     ).astype(np.float64))
     q2 = _groupby_case(np.zeros(n, np.int32), vals, 128,
                        "ClickBench q2 at 2 M rows, 1 live group", dev)
-    # Q3: count and sum(revenue) of 31,617 rows over 11,932 groups, the
-    # first of groupby_sum_large's 4096-group calls
+    # Q3: count and sum(revenue) of 31,617 rows over 11,932 groups
     n = 31_617
     vals = np.empty((n, 3), np.float32)
     vals[:, 0] = 1.0
     _centred_split(vals, 1, rng.uniform(900, 105_000, n))
-    q3 = _groupby_case(rng.integers(0, 11_932, n).astype(np.int32), vals, 4096,
-                       "Q3's first 4096-group call of 11,932 groups", dev)
-    return {**q1, "other_shapes": [q2, q3]}
+    q3 = _groupby_case(rng.integers(0, 11_932, n).astype(np.int32), vals,
+                       16_384, "Q3 at SF1, 11,932 live groups", dev)
+    # Q13: count(*) and count(o_orderkey) of the customer-orders outer join
+    # at SF10 (one row per order, plus one per customer without orders),
+    # by customer
+    n = 15_321_151
+    vals = np.empty((n, 3), np.float32)
+    vals[:, 0] = 1.0
+    _centred_split(vals, 1, (rng.random(n) < 0.98).astype(np.float64))
+    q13 = _groupby_case(rng.integers(0, 1_500_000, n).astype(np.int32), vals,
+                        2 ** 21, "Q13 at SF10, 1,500,000 live groups", dev)
+    return {**q1, "other_shapes": [q2, q3, q13]}
 
 
 def _probe_rounds(keys, slots_key, slots_row, max_probes: int = 32) -> float:

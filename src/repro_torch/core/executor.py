@@ -49,6 +49,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import queue
 import threading
 import time
@@ -76,6 +77,29 @@ from .plan import (
     AggregateRel, ExchangeRel, FetchRel, FilterRel, JoinRel, ProjectRel,
     ReadRel, Rel, ScalarSubquery, SortRel, explain, walk, walk_deep,
 )
+
+# The cyclic collector is off while any thread captures a CUDA graph
+# (_capture_replay): a process-wide switch, so the captures under way are
+# counted, and the last to end turns it back on if it was on before the
+# first began
+_COLLECTOR_LOCK = threading.Lock()
+_collector = {"captures": 0, "was_on": False}
+
+
+@contextlib.contextmanager
+def _collector_off():
+    with _COLLECTOR_LOCK:
+        if _collector["captures"] == 0:
+            _collector["was_on"] = gc.isenabled()
+            gc.disable()
+        _collector["captures"] += 1
+    try:
+        yield
+    finally:
+        with _COLLECTOR_LOCK:
+            _collector["captures"] -= 1
+            if _collector["captures"] == 0 and _collector["was_on"]:
+                gc.enable()
 
 
 # ---------------------------------------------------------------------------
@@ -774,10 +798,13 @@ class PipelineExecutor:
         # capture_begin/end on the warm-up's side stream, as torch.cuda.graph
         # does, but without its synchronize, gc.collect and empty_cache: the
         # warm-up walk has just run, and emptying the allocator's cache
-        # would make the next query go back to cudaMalloc
+        # would make the next query go back to cudaMalloc.  The collector
+        # is off instead: a collection during the capture could free an
+        # unreachable engine's CUDA graph, and destroying a graph while a
+        # stream captures invalidates the capture
         current = torch.cuda.current_stream(self.device)
         try:
-            with torch.cuda.stream(stream):
+            with _collector_off(), torch.cuda.stream(stream):
                 graph.capture_begin(pool=self._graph_pool)
                 try:
                     out = self._replay_core(entry, flags)

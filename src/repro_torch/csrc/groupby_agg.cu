@@ -2,15 +2,17 @@
 // rows whose gid lies outside [0, G) are dropped.
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/groupby_agg.py::groupby_sum
-// (reached through kernels/ops.py::groupby_sum_large, which cuts G above
-// 4096 into several calls).
+// (the reference cuts G above 4096 into several calls, one VMEM accumulator
+// each; here one call takes any G, in one of two designs chosen by
+// kernels/groupby_agg.py::one_pass).
 //
 // Bound on H100: bytes.  Each row's gid and V float32 values are read once
 // and the (G, V) float32 result written once: Q1 at SF1 (6.0 M rows x 15
 // values, G = 128) moves ~384 MB, 114.6 us at 3.35 TB/s; ClickBench q2 at
 // 2 M rows (V = 5) 48 MB, 14.3 us.
 //
-// Design (kernels/groupby_agg.py picks the shapes; one launch a call):
+// The register/shared design, for G <= 4096 (kernels/groupby_agg.py picks
+// the shapes; one launch a call):
 //   * Lanes over columns.  A chunk of cw <= 32 columns (cw = V unless V > 32
 //     or G * V doubles exceed the shared budget; further chunks go across
 //     blockIdx.y) is spread over W lanes, W the power of two >= cw in
@@ -64,7 +66,27 @@
 // registers for each of W = 4, 8, 16, 32, no spill, 16 bytes of static
 // shared memory.  Dynamic shared memory (the ring and the partial): Q1's
 // call (W = 16) 113,664 bytes, 2 blocks an SM; ClickBench's (W = 8)
-// 78,848, 2 an SM (registers); Q3's 4096-group calls (W = 4) 196,608, 1.
+// 78,848, 2 an SM (registers); 4096 groups at V = 3 (W = 4) 196,608, 1.
+//
+// The one-pass design, for G > 4096.  Above 4096 groups a block's (G, cw)
+// partial holds at most two columns, so the rows would be read once per
+// column chunk, and a block that must take G rows or more (grid_blocks)
+// merges about one global atomic a row anyway.  So each row is read once
+// and its V values go straight into the (G, V) float64 accumulator in
+// device memory: Q13's inner group-by at SF10 (15,321,151 rows, V = 3, G =
+// 2^21, 1.5 M live groups) reads 245 MB of rows once and adds into 36 MB
+// of live cells, which stay in the 50 MB L2.
+//   * A warp takes 32 consecutive rows, one a lane.  Equal gids of the warp
+//     find each other with __match_any_sync; where any lane has a peer, a
+//     shuffle tree sums each column over the peers in float64 and only the
+//     lowest lane of each gid adds (red.global.add.f64), so a hot group
+//     costs one atomic a warp and column, not one a row.
+//   * A second grid, launched by the same entry point behind the first on
+//     the stream, rounds the G x V cells once to float32 into out and
+//     zeroes the accumulator for the next launch.
+// The numerics are the register/shared design's: every add in float64,
+// one rounding, the count column exact, the last bits of a sum varying
+// with the order of the atomics.
 #include "common.cuh"
 
 namespace {
@@ -266,6 +288,62 @@ groupby_sum_kernel(const int32_t* __restrict__ gids,
   if (tid == 0) tickets[blockIdx.y] = 0;
 }
 
+// x summed over this lane's peers (the lanes of its warp with the same
+// gid) on the lowest of them; `above` holds the peers above this lane and
+// `rank` its rank among its peers.  A tree: each round every lane adds the
+// next peer still in play, and the odd ranks leave.
+__device__ __forceinline__ double sum_peers(double x, unsigned above, int rank) {
+  while (__any_sync(kFullWarp, above != 0)) {
+    const int next = __ffs(above);   // 1 + the next peer's lane, 0 if none
+    const double t = __shfl_sync(kFullWarp, x, next > 0 ? next - 1 : 0);
+    if (next > 0) x += t;
+    above &= __ballot_sync(kFullWarp, (rank & 1) == 0);
+    rank >>= 1;
+  }
+  return x;
+}
+
+__global__ void __launch_bounds__(repro::kThreads, 4)
+groupby_sum_wide_kernel(const int32_t* __restrict__ gids,
+                        const float* __restrict__ values, double* __restrict__ acc,
+                        int64_t n, int v, int g) {
+  const unsigned lane = threadIdx.x & 31;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * repro::kThreads;
+  // warp-uniform bounds, so that every lane takes part in the warp's votes
+  for (int64_t base = static_cast<int64_t>(blockIdx.x) * repro::kThreads +
+                      (threadIdx.x & ~31u);
+       base < n; base += stride) {
+    const int64_t row = base + lane;
+    int32_t gid = row < n ? __ldg(gids + row) : -1;
+    if (static_cast<unsigned>(gid) >= static_cast<unsigned>(g)) gid = -1;   // dropped
+    const unsigned peers = __match_any_sync(kFullWarp, gid);
+    const unsigned below = peers & ((1u << lane) - 1u);
+    const unsigned above = peers & ~below & ~(1u << lane);
+    const int rank = __popc(below);
+    const bool lead = below == 0 && gid >= 0;
+    const bool shared = __any_sync(kFullWarp, above != 0);
+    const float* src = values + row * v;
+    double* dst = acc + static_cast<int64_t>(gid) * v;
+    for (int c = 0; c < v; ++c) {
+      double x = gid >= 0 ? static_cast<double>(__ldg(src + c)) : 0.0;
+      if (shared) x = sum_peers(x, above, rank);
+      if (lead) atomicAdd(dst + c, x);
+    }
+  }
+}
+
+// out = the accumulator rounded once to float32; the accumulator zeroed
+__global__ void __launch_bounds__(repro::kThreads)
+groupby_sum_finish_kernel(double* __restrict__ acc, float* __restrict__ out,
+                          int64_t cells) {
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * repro::kThreads;
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * repro::kThreads + threadIdx.x;
+       i < cells; i += stride) {
+    out[i] = static_cast<float>(acc[i]);
+    acc[i] = 0.0;
+  }
+}
+
 template <int W>
 cudaError_t launch(const int32_t* gids, const float* values, double* acc,
                    int32_t* tickets, float* out, int64_t n, int v, int g,
@@ -292,7 +370,10 @@ cudaError_t launch(const int32_t* gids, const float* values, double* acc,
 
 }  // namespace
 
-// The wrapper (kernels/groupby_agg.py) has checked the shapes: n >= 1,
+// The wrapper (kernels/groupby_agg.py) has checked the shapes: n >= 1.
+// finish_blocks > 0 takes the one-pass design: n_blocks blocks over the
+// rows, then finish_blocks blocks over the g * v cells (the register/shared
+// design's arguments, from cw to aligned, are not read).  Else
 // 1 <= cw <= min(v, 32), lane_width the power of two >= cw in 4..32,
 // tile_rows a multiple of 8 * 32 / lane_width, rows_per_block a multiple
 // of 4, part_bytes = g * cw * 8 rounded up to 16, smem_bytes = part_bytes
@@ -306,7 +387,16 @@ extern "C" cudaError_t repro_groupby_sum(const int32_t* gids, const float* value
                                          int cw, int64_t rows_per_block,
                                          int lane_width, int tile_rows, int part_bytes,
                                          int smem_bytes, int aligned,
-                                         cudaStream_t stream) {
+                                         int finish_blocks, cudaStream_t stream) {
+  if (finish_blocks > 0) {
+    groupby_sum_wide_kernel<<<n_blocks, repro::kThreads, 0, stream>>>(gids, values, acc,
+                                                                      n, v, g);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    groupby_sum_finish_kernel<<<finish_blocks, repro::kThreads, 0, stream>>>(
+        acc, out, static_cast<int64_t>(g) * v);
+    return cudaGetLastError();
+  }
 #define REPRO_GROUPBY_LAUNCH(W)                                                     \
   return launch<W>(gids, values, acc, tickets, out, n, v, g, n_blocks, cw,         \
                    rows_per_block, tile_rows, part_bytes, smem_bytes, aligned != 0, \

@@ -176,7 +176,7 @@ def pieces(card: str) -> list:
         "groupby_sum: the entry point alone": lambda: groupby_entry(
             gids.data_ptr(), vals.data_ptr(), acc.data_ptr(),
             gtickets.data_ptr(), gout.data_ptr(), 1000, 5, 128, 1, 5, 1000,
-            8, rows, part_bytes, smem, 1, stream),
+            8, rows, part_bytes, smem, 1, 0, stream),
         "join_expand: the wrapper": lambda: ops.join_expand(
             order, lo, counts, counts, t_pad),
         "join_expand: the entry point alone": join_entry,

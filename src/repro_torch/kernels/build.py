@@ -34,7 +34,7 @@ _P, _I32, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 SIGNATURES = {
     "repro_filter_mask_counts": (_P, _P, _P, _P, _P, _I64, _I32, _P),
     "repro_groupby_sum": (_P, _P, _P, _P, _P, _I64, _I32, _I32, _I32, _I32,
-                          _I64, _I32, _I32, _I32, _I32, _I32, _P),
+                          _I64, _I32, _I32, _I32, _I32, _I32, _I32, _P),
     "repro_hash_probe": (_P, _P, _P, _P, _P, _I64, _I32, _I32, _P),
     "repro_join_expand": (_P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64,
                           _I32, _P, _P, ctypes.c_uint64, ctypes.c_uint32, _P),

@@ -1,10 +1,11 @@
 """Wrapper of the group-by sum kernel (``csrc/groupby_agg.cu``).
 
 Counterpart of ``repro/kernels/groupby_agg.py::groupby_sum``.  The kernel's
-shapes (column chunk, lanes a column chunk takes, rows a tile of its
-cp.async ring holds, grid, shared memory) are chosen here by pure functions
-that the CPU tests hold; its float64 accumulator and ticket counters live
-in a scratch kept per (device, stream), zero between launches.
+design (``one_pass``) and shapes (column chunk, lanes a column chunk takes,
+rows a tile of its cp.async ring holds, grids, shared memory) are chosen
+here by pure functions that the CPU tests hold; its float64 accumulator and
+ticket counters live in a scratch kept per (device, stream), zero between
+launches.
 """
 from __future__ import annotations
 
@@ -12,6 +13,7 @@ import threading
 
 import torch
 
+from ..observability.metrics import METRICS
 from . import build
 from .ref import groupby_sum_ref
 
@@ -25,6 +27,27 @@ STAGE_BYTES = 32 * 1024   # about the bytes of one tile (gids and values)
 WARPS = 8                 # a block's warps (256 threads)
 MAX_SMEM = 232_448 - 16   # the H100's shared memory a block may have, less
                           # the kernel's static 16 bytes
+SHARED_GROUPS = 4096      # the most groups the register/shared design takes
+WIDE_BLOCKS_PER_SM = 4    # csrc __launch_bounds__(256, 4) of the one-pass grid
+THREADS = 32 * WARPS      # csrc repro::kThreads
+
+
+def one_pass(g: int) -> bool:
+    """Whether a call over ``g`` groups takes the one-pass design.  Above
+    SHARED_GROUPS a block's (G, cw) float64 partial holds at most two
+    columns, so the register/shared design would read the rows once per
+    column chunk and merge about an atomic a row besides; the one-pass
+    design reads each row once and adds it into the device-memory
+    accumulator."""
+    return g > SHARED_GROUPS
+
+
+def wide_blocks(items: int, sms: int) -> int:
+    """Blocks of a one-pass design's grid over ``items`` (its N rows, or
+    the finishing grid's G x V cells), each thread taking items a grid's
+    stride apart: WIDE_BLOCKS_PER_SM an SM, fewer where there are fewer
+    items than threads."""
+    return max(1, min(WIDE_BLOCKS_PER_SM * sms, -(-items // THREADS)))
 
 
 def column_chunk(v: int, g: int) -> int:
@@ -96,7 +119,8 @@ def groupby_sum(gids: torch.Tensor, values: torch.Tensor,
                 n_groups: int) -> torch.Tensor:
     """Segment-sum ``values`` (N, V) f32 by ``gids`` (N,) int32 → (G, V) f32.
 
-    Rows with gid outside [0, n_groups) are dropped."""
+    Rows with gid outside [0, n_groups) are dropped.  One launch at any G:
+    the one-pass design above SHARED_GROUPS groups (``one_pass``)."""
     if build.on_cpu(gids, values):
         return groupby_sum_ref(gids, values, n_groups)
     build.require(gids, "gids", torch.int32, 1)
@@ -105,13 +129,23 @@ def groupby_sum(gids: torch.Tensor, values: torch.Tensor,
     g = int(n_groups)
     if gids.shape[0] != n:
         raise ValueError(f"gids has {gids.shape[0]} rows, values {n}")
-    if g < 1 or v < 1 or g * 8 > SMEM_BUDGET:
-        raise ValueError(f"groupby_sum takes 1..{SMEM_BUDGET // 8} groups and "
-                         f">= 1 column, got G={g}, V={v}")
+    if g < 1 or v < 1 or g >= 2 ** 31:
+        raise ValueError(f"groupby_sum takes 1..2^31-1 groups and >= 1 "
+                         f"column, got G={g}, V={v}")
     out = torch.empty((g, v), dtype=torch.float32, device=values.device)
     if n == 0:
         return out.zero_()
     index = values.get_device()
+    stream = build.current_stream(index)
+    if one_pass(g):
+        sms = build.sm_count(index)
+        acc, tickets = _workspace(index, stream, g * v, 1, values.device)
+        build.launch("groupby_sum", index, stream, gids.data_ptr(),
+                     values.data_ptr(), acc.data_ptr(), tickets.data_ptr(),
+                     out.data_ptr(), n, v, g, wide_blocks(n, sms), 0, 0, 0, 0,
+                     0, 0, 0, wide_blocks(g * v, sms))
+        METRICS.counter("kernel.groupby_wide").inc()
+        return out
     cw = column_chunk(v, g)
     w = lane_width(cw)
     rows = tile_rows(v, w)
@@ -122,11 +156,10 @@ def groupby_sum(gids: torch.Tensor, values: torch.Tensor,
     n_blocks = grid_blocks(n, g, build.sm_count(index))
     per_block = -(-n // n_blocks)
     per_block += -per_block % 4     # tiles start on 16-byte boundaries
-    stream = build.current_stream(index)
     acc, tickets = _workspace(index, stream, g * v, -(-v // cw), values.device)
     aligned = gids.data_ptr() % 16 == 0 and values.data_ptr() % 16 == 0
     build.launch("groupby_sum", index, stream, gids.data_ptr(),
                  values.data_ptr(), acc.data_ptr(), tickets.data_ptr(),
                  out.data_ptr(), n, v, g, n_blocks, cw, per_block, w, rows,
-                 part, smem, int(aligned))
+                 part, smem, int(aligned), 0)
     return out

@@ -2,8 +2,8 @@
 
 What the reference computes here in jnp stays plain torch: bucketing and
 padding, the sort-based and direct-address join builds and their lookups,
-key bounds, probe-key mapping and factorization, static-size compaction,
-the filter's compaction and the group-space partitioning.
+key bounds, probe-key mapping and factorization, static-size compaction
+and the filter's compaction.
 ``hash_probe_int64`` launches the ``hash_probe`` kernel.
 """
 from __future__ import annotations
@@ -27,7 +27,6 @@ __all__ = [
     "sorted_build", "sorted_lookup", "topk_select",
 ]
 
-_GROUP_BUDGET = 4096                      # groups per groupby_sum call
 KEY_SENTINEL = torch.iinfo(torch.int64).max  # pads sorted key arrays
 
 
@@ -194,11 +193,8 @@ def filter_select(cols: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor):
 
 def groupby_sum_large(gids: torch.Tensor, values: torch.Tensor,
                       n_groups: int) -> torch.Tensor:
-    """Group-space-partitioned aggregation for G beyond one call's budget."""
-    if n_groups <= _GROUP_BUDGET:
-        return groupby_sum(gids, values, n_groups)
-    parts = []
-    for base in range(0, n_groups, _GROUP_BUDGET):
-        g = min(_GROUP_BUDGET, n_groups - base)
-        parts.append(groupby_sum(gids - base, values, g))
-    return torch.cat(parts, dim=0)
+    """Aggregation at any G in one ``groupby_sum`` call.  The reference
+    cuts G above 4096 into 4096-group calls, each reading every row, to fit
+    a TPU VMEM accumulator; the card's kernel takes G above 4096 in one pass
+    over the rows instead (``groupby_agg.one_pass``)."""
+    return groupby_sum(gids, values, n_groups)

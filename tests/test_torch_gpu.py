@@ -179,22 +179,77 @@ def _groupby_want(gids, vals, g):
     return zeros.index_add(0, safe, keep), zeros.index_add(0, safe, keep.abs())
 
 
-def _check_groupby(dev, n, g, v, seed, gid_range=None):
+def _check_groupby(dev, n, g, v, seed, gid_range=None, gids=None):
     """groupby_sum against the float64 sums of the same float32 inputs:
-    column 0 (ones) exactly, the others within 1e-6 x sum|v|; one launch."""
+    column 0 (ones) exactly, the others within 1e-6 x sum|v|; one launch,
+    counted as one-pass above 4096 groups; the stream's accumulator zero
+    after it."""
+    from repro_torch.kernels import groupby_agg
+    from repro_torch.observability.metrics import METRICS
     rng = np.random.default_rng(seed)
-    lo, hi = gid_range or (-1, g + 1)
-    gids = torch.from_numpy(rng.integers(lo, hi, n).astype(np.int32)).to(dev)
+    if gids is None:
+        lo, hi = gid_range or (-1, g + 1)
+        gids = rng.integers(lo, hi, n).astype(np.int32)
+    gids = torch.from_numpy(gids).to(dev)
     vals = rng.normal(size=(n, v)).astype(np.float32)
     vals[:, 0] = 1.0
     vals = torch.from_numpy(vals).to(dev)
+    wide = METRICS.counter("kernel.groupby_wide").value
     build.reset_launch_counts()
     got = ops.groupby_sum(gids, vals, g)
     assert build.launch_counts()["groupby_sum"] == 1
+    assert METRICS.counter("kernel.groupby_wide").value == wide + (g > 4096)
     want, scale = _groupby_want(gids, vals, g)
     assert torch.equal(got[:, 0].double(), want[:, 0])
     assert bool(((got.double() - want).abs() <= 1e-6 * scale + 1e-30).all())
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    acc, tickets = groupby_agg._workspaces[(dev.index or 0, stream)]
+    assert not bool(acc.any()) and not bool(tickets.any())
     return got
+
+
+@pytest.mark.parametrize("n,g,v,live", [
+    (2_000_000, 262_144, 3, 200_000),   # Q13's call at SF10, scaled down
+    (1_000_000, 100_003, 3, 100_003),   # G not a power of two
+    (500_000, 20_000, 15, 20_000),      # Q1's width
+    (300_000, 8_192, 40, 8_192),        # V = 40: two warps' worth of columns
+    (300_000, 4_097, 1, 4_097)])        # the first G of the one-pass design
+def test_groupby_sum_one_pass_on_card(dev, n, g, v, live):
+    """G above 4096: one pass over the rows into the device-memory
+    accumulator; gids uniform over [-1, live], so -1 (and G where live = G)
+    are dropped."""
+    _check_groupby(dev, n, g, v, seed=g + v, gid_range=(-1, live + 1))
+
+
+def test_groupby_sum_one_pass_drops_out_of_range_gids_on_card(dev):
+    """Gids far outside [0, G), on both sides, beside gids in range."""
+    rng = np.random.default_rng(3)
+    n, g = 400_000, 50_000
+    gids = rng.integers(0, g, n).astype(np.int32)
+    bad = rng.random(n) < 0.3
+    gids[bad] = rng.choice(np.int32([-2 ** 31, -7, g, g + 1, 2 ** 31 - 1]), int(bad.sum()))
+    _check_groupby(dev, n, g, 3, seed=4, gids=gids)
+
+
+@pytest.mark.parametrize("order", ["shuffled", "sorted"])
+def test_groupby_sum_one_pass_hot_group_on_card(dev, order):
+    """One group holds 30% of the rows: its rows of a warp sum in
+    registers before one atomic; sorted gids put whole warps on a group."""
+    rng = np.random.default_rng(5)
+    n, g = 1_000_000, 65_536
+    gids = np.where(rng.random(n) < 0.3, 777, rng.integers(0, g, n)).astype(np.int32)
+    if order == "sorted":
+        gids.sort()
+    _check_groupby(dev, n, g, 3, seed=6, gids=gids)
+
+
+def test_groupby_sum_one_pass_twice_on_one_stream_on_card(dev):
+    """Two one-pass launches in a row on one stream, the second over fewer
+    groups and columns than the accumulator holds: each right, and the
+    accumulator zero after each."""
+    first = _check_groupby(dev, 600_000, 131_072, 3, seed=8)
+    second = _check_groupby(dev, 300_000, 5_000, 2, seed=9)
+    assert first.shape == (131_072, 3) and second.shape == (5_000, 2)
 
 
 @pytest.mark.parametrize("g", [12, 128, 4096])
@@ -875,6 +930,49 @@ def test_changed_recorded_scalar_raises_replay_mismatch_on_card(tpch_small):
     eng.execute(QUERIES[6]())
     assert eng.executor.last_replay_mode == "graph"
     assert stats["replay_mismatches"] == 1
+
+
+def test_capture_outlives_a_graph_the_collector_frees_on_card(tpch_small):
+    """A CUDA graph freed by the cyclic collector while another is being
+    captured would invalidate that capture: Q6's capture drops the last
+    reference from outside a cycle that holds a graph, with the collector
+    set to run at nearly every allocation, and still captures."""
+    import gc
+    from repro_torch.data.tpch_queries import QUERIES
+    eng = _loaded(tpch_small)
+    side = torch.cuda.Stream()
+    x = torch.ones(4, device="cuda")
+    graph = torch.cuda.CUDAGraph()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        graph.capture_begin()
+        y = x * 2
+        graph.capture_end()
+    torch.cuda.current_stream().wait_stream(side)
+    thresholds = gc.get_threshold()
+    gc.freeze()                        # the collections below scan only new objects
+    cycle = [graph, y]
+    cycle.append(cycle)
+    holder = {"cycle": cycle}
+    del graph, y, cycle
+    core = eng.executor._replay_core
+
+    def core_dropping_the_cycle(*args, **kwargs):
+        if torch.cuda.is_current_stream_capturing() and holder["cycle"] is not None:
+            holder["cycle"] = None     # now only the collector frees the graph
+            gc.set_threshold(1, 1, 1)
+        return core(*args, **kwargs)
+
+    eng.executor._replay_core = core_dropping_the_cycle
+    try:
+        eng.execute(QUERIES[6]())
+    finally:
+        gc.set_threshold(*thresholds)
+        gc.unfreeze()
+    assert holder["cycle"] is None     # the capture ran
+    assert eng.executor.capture_errors == {}
+    eng.execute(QUERIES[6]())
+    assert eng.executor.last_replay_mode == "graph"
 
 
 def test_fixed_point_sums_are_order_free_on_card(dev):

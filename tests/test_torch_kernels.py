@@ -426,6 +426,101 @@ def test_groupby_grid_at_the_main_path_shapes():
     assert 2 * (ga.smem_layout(128, 15, 15, 512)[1] + 1024) <= 233_472
 
 
+@pytest.mark.parametrize("v", [1, 3, 15])
+@pytest.mark.parametrize("g", [4096, 4097, 12_288, 2 ** 21])
+def test_groupby_design_at_the_boundary(g, v):
+    """Up to 4096 groups the register/shared design, with the shapes it has
+    always had; above, the one-pass design at every V."""
+    from repro_torch.kernels import groupby_agg as ga
+    assert ga.one_pass(g) == (g > 4096)
+    if not ga.one_pass(g):
+        cw = ga.column_chunk(v, g)
+        assert cw == min(v, 3) and g * cw * 8 <= ga.SMEM_BUDGET
+        w = ga.lane_width(cw)
+        assert ga.smem_layout(g, cw, v, ga.tile_rows(v, w))[1] <= ga.MAX_SMEM
+
+
+@pytest.mark.parametrize("items", [1, 255, 256, 257, 4097, 135_168,
+                                   3 * 2 ** 21, 15_321_151, 40 * 100_003])
+def test_groupby_one_pass_grids(items):
+    """The row grid over N rows and the finishing grid over the G x V
+    cells: every block has a thread's item or more, the threads cover the
+    items in one stride or the grid is WIDE_BLOCKS_PER_SM an SM."""
+    from repro_torch.kernels import groupby_agg as ga
+    sms = 132
+    top = ga.WIDE_BLOCKS_PER_SM * sms
+    blocks = ga.wide_blocks(items, sms)
+    assert 1 <= blocks <= top and (blocks - 1) * ga.THREADS < items
+    assert blocks == top or blocks * ga.THREADS >= items
+
+
+def test_groupby_one_pass_grids_at_q13():
+    from repro_torch.kernels import groupby_agg as ga
+    assert ga.wide_blocks(15_321_151, 132) == 528     # 4 an SM, 113 rows a thread
+    assert ga.wide_blocks(3 * 2 ** 21, 132) == 528    # the finish over G x V cells
+
+
+@pytest.mark.parametrize("n_groups", [4097, 9000, 2 ** 21])
+def test_groupby_sum_large_calls_the_wrapper_once(monkeypatch, n_groups):
+    """Above 4096 groups groupby_sum_large hands the gids, unshifted, to one
+    wrapper call."""
+    calls = []
+
+    def stub(gids, values, g):
+        calls.append((gids, values, g))
+        return torch.zeros((g, values.shape[1]))
+
+    monkeypatch.setattr(ops, "groupby_sum", stub)
+    gids = torch.arange(50, dtype=torch.int32)
+    vals = torch.ones((50, 3))
+    out = ops.groupby_sum_large(gids, vals, n_groups)
+    assert len(calls) == 1 and out.shape == (n_groups, 3)
+    assert calls[0][0] is gids and calls[0][1] is vals and calls[0][2] == n_groups
+
+
+@pytest.mark.parametrize("g,v", [(128, 15), (4096, 3), (4097, 3), (2 ** 21, 3),
+                                 (100_003, 40)])
+def test_groupby_wrapper_arguments_for_each_design(monkeypatch, g, v):
+    """The card path of the wrapper, its launch replaced by a recorder: one
+    launch a call with as many arguments as the entry point takes; the
+    one-pass design's grids, a (G, V) accumulator and one count of
+    ``kernel.groupby_wide`` above 4096 groups, the register/shared
+    design's shapes, finish_blocks 0 and no count up to it."""
+    from repro_torch.kernels import groupby_agg as ga
+    from repro_torch.observability.metrics import METRICS
+    launched = []
+    monkeypatch.setattr(build, "on_cpu", lambda *t: False)
+    monkeypatch.setattr(build, "current_stream", lambda index: 7)
+    monkeypatch.setattr(build, "sm_count", lambda index: 132)
+    monkeypatch.setattr(build, "launch",
+                        lambda name, index, stream, *a: launched.append((name, stream, a)))
+    monkeypatch.setattr(ga, "_workspaces", {})
+    n = 1000
+    gids = torch.zeros(n, dtype=torch.int32)
+    vals = torch.ones((n, v))
+    wide = METRICS.counter("kernel.groupby_wide")
+    before = wide.value
+    out = ga.groupby_sum(gids, vals, g)
+    assert out.shape == (g, v)
+    assert len(launched) == 1
+    name, stream, args = launched[0]
+    assert name == "groupby_sum" and stream == 7
+    assert len(args) + 1 == len(build.SIGNATURES["repro_groupby_sum"])
+    n_arg, v_arg, g_arg, blocks = args[5:9]
+    assert (n_arg, v_arg, g_arg) == (n, v, g)
+    acc, tickets = ga._workspaces[(vals.get_device(), 7)]
+    assert args[2] == acc.data_ptr() and acc.numel() >= g * v
+    if g > 4096:
+        assert blocks == ga.wide_blocks(n, 132) and args[-1] == ga.wide_blocks(g * v, 132)
+        assert wide.value == before + 1
+    else:
+        cw = ga.column_chunk(v, g)
+        rows = ga.tile_rows(v, ga.lane_width(cw))
+        assert blocks == ga.grid_blocks(n, g, 132) and args[9] == cw
+        assert args[12:15] == (rows, *ga.smem_layout(g, cw, v, rows))
+        assert args[-1] == 0 and wide.value == before
+
+
 @pytest.mark.parametrize("n", [1, 2047, 2048, 2049, 968_874, 5_996_021])
 @pytest.mark.parametrize("total", [1, 8, 2 ** 16, 2 ** 20])
 def test_join_expand_grid(n, total):

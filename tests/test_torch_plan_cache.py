@@ -272,3 +272,43 @@ def test_buffer_manager_needs_a_device():
     assert BufferManager(1 << 20, 1 << 20, "cpu").table_epochs == {}
     np.testing.assert_equal(
         SiriusEngine(device="cpu").buffers.device.type, "cpu")
+
+
+@pytest.mark.parametrize("on_before", [True, False])
+def test_collector_stays_off_until_the_last_capture_ends(on_before):
+    """A graph capture turns the cyclic collector off for the process; two
+    captures that overlap on two threads keep it off until the second
+    ends, and then leave it as it was before the first began."""
+    import gc
+    import threading
+    from repro_torch.core import executor
+    was = gc.isenabled()
+    (gc.enable if on_before else gc.disable)()
+    first_in, second_in, first_out = (threading.Event() for _ in range(3))
+    seen = {}
+
+    def first():
+        with executor._collector_off():
+            first_in.set()
+            second_in.wait(5)
+        first_out.set()
+
+    def second():
+        first_in.wait(5)
+        with executor._collector_off():
+            second_in.set()
+            first_out.wait(5)
+            seen["after_first"] = gc.isenabled()
+        seen["after_second"] = gc.isenabled()
+
+    try:
+        threads = [threading.Thread(target=f) for f in (first, second)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(10)
+        assert first_out.is_set() and second_in.is_set()
+        assert seen == {"after_first": False, "after_second": on_before}
+        assert executor._collector["captures"] == 0
+    finally:
+        (gc.enable if was else gc.disable)()

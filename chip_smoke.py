@@ -296,12 +296,13 @@ EXPECTED_GRAPH_QIDS = frozenset(range(1, 23))
 WARM_RUNS = 3
 
 # ClickBench: rows of the hits sample and its seed; the kernel hits per
-# query on the reference engine at that scale (top-k declines on q12 and
-# q14 there: their composite ORDER BY key spans more than 2^24)
+# query at that scale (the reference engine's, but for top-k on q12 and
+# q14: their composite ORDER BY key spans more than 2^24, where the
+# reference declines and the port ranks in int64)
 CB_ROWS = 2_000_000
 CB_SEED = 20130701
 CB_AGG = ("q0", "q1", "q2", "q6", "q12", "q14", "q20", "q21", "q43x", "q44x")
-CB_TOPK = ("q8", "q21", "q22", "q44x")
+CB_TOPK = ("q8", "q12", "q14", "q21", "q22", "q44x")
 
 # The TPU kernels the CUDA kernels replace (file:line of the pallas_call's
 # function in the JAX package)
@@ -692,9 +693,12 @@ def check_groupby(rng, dev) -> dict:
     call it with one group too), Q3's call at SF1 (11,932 groups, called
     with G rounded up to 16,384) and Q13's inner group-by at SF10
     (15,321,151 rows over 1,500,000 customers, G = 2^21), both above 4096
-    groups and so one-pass, go under ``other_shapes``.  Each is called
-    through ``groupby_sum_large``, as core/kernel_backend.py calls it, so
-    that ``kernel_turns.py`` times a checkout that cut G above 4096 into
+    groups and so one-pass, go under ``other_shapes``, and so does one
+    chunk of ClickBench q32 at 99,997,497 rows (2^24 rows, the chunk
+    core/kernel_backend.py takes past ROW_BOUND, over nearly 100 M
+    (WatchID, ClientIP) groups, G = 2^27).  Each is called through
+    ``groupby_sum_large``, as core/kernel_backend.py calls it, so that
+    ``kernel_turns.py`` times a checkout that cut G above 4096 into
     4096-group calls on the same inputs."""
     n, v, g = 5_996_021, 15, 128       # Q1: 4 groups, called with G=128
     gids = rng.integers(0, 4, n).astype(np.int32)
@@ -735,7 +739,18 @@ def check_groupby(rng, dev) -> dict:
     _centred_split(vals, 1, (rng.random(n) < 0.98).astype(np.float64))
     q13 = _groupby_case(rng.integers(0, 1_500_000, n).astype(np.int32), vals,
                         2 ** 21, "Q13 at SF10, 1,500,000 live groups", dev)
-    return {**q1, "other_shapes": [q2, q3, q13]}
+    # q32: count(*), sum(IsRefresh) and avg(ResolutionWidth) by (WatchID,
+    # ClientIP), one 2^24-row chunk of the 99,997,497 rows; nearly every
+    # row is a group of its own
+    n = 2 ** 24
+    vals = np.empty((n, 5), np.float32)
+    vals[:, 0] = 1.0
+    _centred_split(vals, 1, (rng.random(n) < 0.1).astype(np.float64))
+    _centred_split(vals, 3, rng.choice(widths, n).astype(np.float64))
+    q32 = _groupby_case(rng.integers(0, 99_997_497, n).astype(np.int32), vals,
+                        2 ** 27, "ClickBench q32, one 2^24-row chunk of "
+                        "99,997,497 rows", dev)
+    return {**q1, "other_shapes": [q2, q3, q13, q32]}
 
 
 def _probe_rounds(keys, slots_key, slots_row, max_probes: int = 32) -> float:
@@ -927,15 +942,19 @@ def _topk_case(keys_np: np.ndarray, k: int, what: str, dev) -> dict:
         "plain_ms": cuda_ms(lambda: ref.topk_select_ref(keys, k)),
         # its tie order is unspecified: timed, not held
         "library_ms": cuda_ms(lambda: torch.topk(keys, k, largest=False)),
-        **bound(n * 4 + k * 4, n),
+        **bound(n * keys.element_size() + k * 4, n),
     }
 
 
 def check_topk(rng, dev) -> dict:
     """The row is q21's and q22's main-path call at 2,000,000 rows (433
     groups, LIMIT 10; keys are try_topk's composites of a descending count
-    and a dictionary code); the 2^20-key call with heavy ties goes under
-    ``other_shapes``."""
+    and a dictionary code); the 2^20-key call with heavy ties, q14's call
+    at 2,000,000 rows (1,732 groups, a composite of a descending count, the
+    engine id and the phrase code that spans more than 2^24, so int64) and
+    an int64 call at the size of the ClickBench cell's per-user top 10
+    (17,630,976 ranks, heavy ties, negative keys and both ends of int64) go
+    under ``other_shapes``."""
     n = 433
     counts = rng.integers(1, 20_000, n)
     codes = rng.permutation(n)
@@ -944,7 +963,20 @@ def check_topk(rng, dev) -> dict:
     n = 1_048_573                       # not a multiple of the 1024-key tile
     ties = rng.integers(0, 1000, n).astype(np.float32)
     large = _topk_case(ties, 128, "integers 0..999, heavy ties", dev)
-    return {**main, "other_shapes": [large]}
+    n, engines, phrases = 1_732, 42, 434
+    counts = rng.integers(1, 112_000, n)
+    pairs = rng.choice(engines * phrases, n, replace=False)
+    keys = (counts.max() - counts) * (engines * phrases) + pairs
+    q14 = _topk_case(keys.astype(np.int64), 10,
+                     "q14 at 2 M rows, int64 composite", dev)
+    n = 17_630_976
+    values = np.concatenate([
+        np.array([np.iinfo(np.int64).min, np.iinfo(np.int64).max, -1, 0]),
+        rng.integers(np.iinfo(np.int64).min, np.iinfo(np.int64).max, 996)])
+    wide = _topk_case(rng.choice(values, n), 10,
+                      "int64, 1,000 values over the whole range, heavy ties",
+                      dev)
+    return {**main, "other_shapes": [large, q14, wide]}
 
 
 def _decode_bf16_scores(q, k, v, n):
@@ -1451,8 +1483,8 @@ def run_clickbench() -> dict:
         hits = {k: after[k] - before[k] for k in after}
         want = _hits(agg=int(qid in CB_AGG), topk=int(qid in CB_TOPK))
         if hits != want:
-            raise AssertionError(f"ClickBench {qid}: kernel hits {hits}, the "
-                                 f"reference engine's at {CB_ROWS} rows are {want}")
+            raise AssertionError(f"ClickBench {qid}: kernel hits {hits}, "
+                                 f"expected at {CB_ROWS} rows {want}")
         launches = {k: n - launched[k] for k, n in build.launch_counts().items()}
         warm = statistics.median(timed(eng, qid)[1] for _ in range(3))
         runs[qid] = {"out": out.to_host(), "hits": hits, "launches": launches,

@@ -1267,6 +1267,10 @@ class SiriusEngine:
         # instead of the Tables themselves so the buffer manager stays free
         # to spill device columns
         self.table_dictionaries: Dict[str, Dict[str, object]] = {}
+        # each registered table's column kinds and row count: what
+        # ``sql(text)`` binds a table by when the default catalog lacks it
+        self.table_schemas: Dict[str, Dict[str, str]] = {}
+        self.table_rows: Dict[str, int] = {}
         # warm front doors: normalized SQL text and canonical wire bytes map
         # to executable-plan signatures, skipping lexer, parser, binder and
         # optimizer (sql) or ingest and routing (accelerate) on a hit;
@@ -1292,6 +1296,9 @@ class SiriusEngine:
         self._sql_plan_sigs.clear()
         self._wire_plan_cache.clear()
         self.buffers.cache_table(name, table)
+        self.table_schemas[name] = {c: col.kind
+                                    for c, col in table.columns.items()}
+        self.table_rows[name] = table.num_rows
         dicts = {c: col.dictionary for c, col in table.columns.items()
                  if col.dictionary is not None}
         if dicts:
@@ -1318,9 +1325,11 @@ class SiriusEngine:
             analyze: bool = False):
         """SQL text → parse → optimize → execute.
 
-        The optimizer's catalog (default: TPC-H at SF 1) is enriched with
-        the registered tables' string dictionaries, so LIKE / IN / prefix
-        predicates are costed by their dictionary hit rate.
+        The optimizer's catalog (default: TPC-H at SF 1, plus each
+        registered table it lacks, bound by its columns' kinds with its
+        row count as the estimate) is enriched with the registered tables'
+        string dictionaries, so LIKE / IN / prefix predicates are costed by
+        their dictionary hit rate.
 
         ``EXPLAIN ANALYZE <query>`` runs the query with per-operator
         telemetry and returns its ``QueryProfile`` instead of the result;
@@ -1354,8 +1363,10 @@ class SiriusEngine:
                 out = self.executor.replay_signature(sig)
                 if out is not None:
                     return out
-        cat = (catalog or DEFAULT_CATALOG).with_dictionaries(
-            self.table_dictionaries)
+        if catalog is None:
+            catalog = DEFAULT_CATALOG.with_tables(self.table_schemas,
+                                                  self.table_rows)
+        cat = catalog.with_dictionaries(self.table_dictionaries)
         if m or analyze:
             if m:
                 text = text[m.end():]

@@ -16,7 +16,8 @@ On CPU tensors each kernel wrapper runs its plain version instead.
   * expand    — the eager join's run expansion (multi-match inner/left) →
                 ``join_expand``.
   * topk      — ORDER BY + LIMIT over integer/date/string-code keys packed
-                into one f32-exact composite → ``topk_select``.
+                into one composite rank, float32 where it is exact and
+                int64 where it is wider → ``topk_select``.
 
 Numerical note for the aggregate path: the kernel sums float32, so each
 additive column is centered by its f64 mean (the sums carry deviations, not
@@ -76,6 +77,12 @@ def _collect_range_conjuncts(e: Expr, out: List[Tuple[str, float, float]]) -> bo
 
 _SUM_FNS = ("sum", "count", "count_star", "avg")
 _AGG_FNS = _SUM_FNS + ("min", "max")
+# a group's float32 count in ``groupby_sum`` is exact up to 2^24 rows: a
+# group-by over more rows runs the kernel on chunks of this many
+ROW_BOUND = 2**24
+# a composite ORDER BY rank spanning at most this many values is exact in
+# float32; a wider one that fits in 63 bits goes to the kernel as int64
+F32_RANKS = 2**24
 
 
 class KernelBackend:
@@ -177,16 +184,13 @@ class KernelBackend:
         """Route an eligible group-by to the ``groupby_sum`` kernel.
 
         Additive aggregates (sum/count/avg) become columns of one (N, V)
-        value matrix summed per group in one ``groupby_sum_large`` call;
-        min/max ride along as device segment ops.  Returns None (caller
+        value matrix summed per group in one ``groupby_sum_large`` call
+        (one a chunk of ROW_BOUND rows past that bound); min/max ride
+        along as device segment ops.  Returns None (caller
         falls back to the generic path) if any key or aggregate is outside
         the contract; all checks are metadata-level.
         """
         if t.num_rows == 0:
-            return None
-        if t.num_rows >= 2**24:
-            # a group's f32 count is only exact below 2^24 rows (same
-            # exactness bound try_filter enforces); bail out past it
             return None
         for k in keys:
             if k not in t or dtype_kind(t[k].data) not in "iub":
@@ -216,34 +220,78 @@ class KernelBackend:
         # centres to small integers whose group sums the f32 outputs hold
         # exactly, so a HAVING on such a sum (Q18's sum(l_quantity) > 300)
         # sees the exact value
-        sum_cols = [torch.ones(t.num_rows, dtype=torch.float32, device=t.device)]
-        routes = []                      # per agg: (hi column index, center)
+        centers = []                     # per additive agg: (data, center)
+        routes = []                      # per agg: its index in centers
         for a, col in zip(aggs, values):
             if a.fn in ("sum", "avg"):
                 data = col.data.to(torch.float64)
-                c = torch.round(data.mean())
-                centered = data - c
-                hi = centered.to(torch.float32)
-                lo = (centered - hi.to(torch.float64)).to(torch.float32)
-                sum_cols.extend([hi, lo])
-                routes.append((len(sum_cols) - 2, c))
+                centers.append((data, torch.round(data.mean())))
+                routes.append(len(centers) - 1)
             else:
-                routes.append((None, None))  # counts column or min/max
+                routes.append(None)      # counts column or min/max
 
         # group-count bucketing, as the reference does for its compiled kernel
         g_call = max(128, 1 << (n_groups - 1).bit_length())
-        acc = kops.groupby_sum_large(
-            gids.to(torch.int32), torch.stack(sum_cols, dim=1), g_call)[:n_groups]
-        counts = acc[:, 0].to(torch.float64)
+        gids32 = gids.to(torch.int32)
+        n = t.num_rows
+
+        def sums(cols, ones: bool):
+            """Per-group sums of each (data, centre) of ``cols`` (a centre
+            is a scalar or one per row) → (int64 counts where ``ones``,
+            (G, len(cols)) float64 centred sums, the largest |float32
+            output| of each column's hi and lo sums).  Past ROW_BOUND rows
+            the kernel runs on chunks of ROW_BOUND rows: each chunk's f32
+            counts are exact, and the chunks' counts add up in int64,
+            their hi/lo sums in float64."""
+            acc = n_rows = peak = None
+            for lo in range(0, n, ROW_BOUND):
+                hi = min(lo + ROW_BOUND, n)
+                mat = [torch.ones(hi - lo, dtype=torch.float32,
+                                  device=t.device)] if ones else []
+                for data, c in cols:
+                    centered = data[lo:hi] - (c if c.dim() == 0 else c[lo:hi])
+                    h = centered.to(torch.float32)
+                    mat += [h, (centered - h.to(torch.float64)).to(torch.float32)]
+                part = kops.groupby_sum_large(gids32[lo:hi], torch.stack(mat, 1),
+                                              g_call)[:n_groups]
+                if n > ROW_BOUND:
+                    METRICS.counter("kernel.groupby_row_chunks").inc()
+                if ones:
+                    c = torch.round(part[:, 0]).to(torch.int64)
+                    n_rows = c if n_rows is None else n_rows.add_(c)
+                    part = part[:, 1:]
+                top = part.abs().amax(0).reshape(-1, 2).amax(1)
+                peak = top if peak is None else torch.maximum(peak, top)
+                part = part.to(torch.float64).reshape(n_groups, -1, 2).sum(2)
+                acc = part if acc is None else acc.add_(part)
+            return n_rows, acc, peak
+
+        n_rows, acc, peak = sums(centers, ones=True)
+        counts = n_rows.to(torch.float64)
+        totals = [acc[:, i] + c * counts for i, (_, c) in enumerate(centers)]
+
+        # float32 outputs hold integers only up to 2^24: where a group's
+        # sum of an integer column about the column's centre passes that
+        # (a large group whose mean lies far from it: ClickBench q30's
+        # avg(ResolutionWidth)), sum again about each group's own mean,
+        # whose centred sums stay small
+        exact = [i for a, col, i in zip(aggs, values, routes)
+                 if i is not None and dtype_kind(col.data) in "ib"]
+        if n_groups > 1 and exact and pull_scalar(
+                (peak[exact] >= 2**24).any()):
+            own = [torch.round(totals[i] / torch.clamp(counts, min=1.0))
+                   for i in exact]
+            _, again, _ = sums([(centers[i][0], c[gids]) for i, c in
+                                zip(exact, own)], ones=False)
+            for j, (i, c) in enumerate(zip(exact, own)):
+                totals[i] = again[:, j] + c * counts
 
         out = dict(uniq.columns)
-        for a, col, (slot, center) in zip(aggs, values, routes):
+        for a, col, i in zip(aggs, values, routes):
             if a.fn in ("count", "count_star"):
-                out[a.name] = Column(torch.round(counts).to(torch.int64), NUMERIC)
+                out[a.name] = Column(n_rows, NUMERIC)
             elif a.fn in ("sum", "avg"):
-                s = (acc[:, slot].to(torch.float64)
-                     + acc[:, slot + 1].to(torch.float64)
-                     + center * counts)
+                s = totals[i]
                 if a.fn == "avg":
                     out[a.name] = Column(s / torch.clamp(counts, min=1.0), NUMERIC)
                 elif dtype_kind(col.data) in "ib":
@@ -277,9 +325,11 @@ class KernelBackend:
 
         Contract: integer-coded sort keys (numeric ints, dates, or string
         dictionary codes — order-preserving) packed into one composite rank
-        whose range stays f32-exact (at most 2^24), and 0 < limit <= 128.
-        The kernel is tie-stable, so results are row-exact against the
-        generic lexsort.  Per-key min and max are read with ``pull_scalar``.
+        that spans at most 2^63 values, and 0 < limit <= 128.  A rank that
+        spans at most 2^24 values goes to the kernel in float32, where it
+        is exact; a wider one as int64.  The kernel is tie-stable, so
+        results are row-exact against the generic lexsort.  Per-key min
+        and max are read with ``pull_scalar``.
         """
         if limit is None or not (0 < limit <= 128) or not keys:
             return None
@@ -287,7 +337,7 @@ class KernelBackend:
             return None
         if t.num_rows <= limit:
             return None
-        comps = []
+        bounds = []
         total = 1
         for k in keys:
             c = t[k.name]
@@ -295,18 +345,18 @@ class KernelBackend:
                 return None
             lo = int(pull_scalar(c.data.min()))
             hi = int(pull_scalar(c.data.max()))
-            span = hi - lo + 1
-            v = c.data - lo
-            if not k.ascending:
-                v = (span - 1) - v
-            comps.append((v, span))
-            total *= span
-            if total > 2**24:      # composite must stay exact in f32
+            bounds.append((c.data, lo, hi - lo + 1, k.ascending))
+            total *= hi - lo + 1
+            if total > 2**63:      # the composite must fit in int64
                 return None
-        comp, _ = comps[0]
-        for v, span in comps[1:]:
-            comp = comp * span + v
-        idx = kops.topk_select(comp.to(torch.float32), limit)
+        wide = total > F32_RANKS
+        comp = None
+        for data, lo, span, ascending in bounds:
+            v = (data.to(torch.int64) if wide else data) - lo
+            if not ascending:
+                v = (span - 1) - v
+            comp = v if comp is None else comp * span + v
+        idx = kops.topk_select(comp if wide else comp.to(torch.float32), limit)
         self.topk_hits += 1
         METRICS.counter("kernel.topk_hits").inc()
         return t.take(idx)

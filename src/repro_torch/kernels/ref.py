@@ -104,10 +104,13 @@ def join_expand_ref(order: torch.Tensor, lo: torch.Tensor,
 
 def topk_select_ref(keys: torch.Tensor, k: int) -> torch.Tensor:
     """The first ``k`` indices (int32) of a stable ascending sort of the
-    float32 keys: ties go to the smaller row, and -0.0 equals +0.0, as the
-    TPU kernel's ``==`` has it."""
-    keys = keys.to(torch.float32)
-    keys = torch.where(keys == 0, torch.zeros_like(keys), keys)
+    keys: ties go to the smaller row.  float32 keys (any float is taken as
+    float32) treat -0.0 as +0.0, as the TPU kernel's ``==`` has it; int64
+    keys (the engine's composite ranks wider than float32 holds exactly)
+    sort as they are."""
+    if keys.dtype != torch.int64:
+        keys = keys.to(torch.float32)
+        keys = torch.where(keys == 0, torch.zeros_like(keys), keys)
     return torch.sort(keys, stable=True).indices[:k].to(torch.int32)
 
 

@@ -15,6 +15,7 @@ import torch
 
 from ..core.instrument import pull_scalar
 from ..kernels.ops import compact
+from ..observability.journal import JOURNAL
 from .expressions import Expr, evaluate
 from .sort import lexsort
 from .table import NUMERIC, STRING, Column, Table
@@ -227,14 +228,16 @@ def factorize_groups(table: Table, keys: Sequence[str]) -> Tuple[torch.Tensor, T
 
 
 def _count_distinct(gids: torch.Tensor, vals: torch.Tensor, n_groups: int):
-    """Sort (gid, value) pairs, count run starts per group."""
-    n = gids.shape[0]
-    order = lexsort([gids, vals])
-    g_s, v_s = gids[order], vals[order]
-    first = torch.ones(n, dtype=torch.bool, device=gids.device)
-    if n > 1:
-        first[1:] = (g_s[1:] != g_s[:-1]) | (v_s[1:] != v_s[:-1])
-    return segment_sum(first.to(torch.int64), g_s, n_groups)
+    """Sort (gid, value) pairs, count run starts per group; in the journal's
+    ``agg.count_distinct`` span (inside the group-by's sink)."""
+    with JOURNAL.span("agg.count_distinct", "operator"):
+        n = gids.shape[0]
+        order = lexsort([gids, vals])
+        g_s, v_s = gids[order], vals[order]
+        first = torch.ones(n, dtype=torch.bool, device=gids.device)
+        if n > 1:
+            first[1:] = (g_s[1:] != g_s[:-1]) | (v_s[1:] != v_s[:-1])
+        return segment_sum(first.to(torch.int64), g_s, n_groups)
 
 
 def _segment(fn: str, data: torch.Tensor, gids: torch.Tensor, n: int,

@@ -58,6 +58,18 @@ class Catalog:
     def has_table(self, name: str) -> bool:
         return name in self.schema
 
+    def with_tables(self, schemas: Dict[str, Dict[str, str]],
+                    rows: Dict[str, float]) -> "Catalog":
+        """Copy of this catalog that also binds the tables of ``schemas``
+        (table → column → kind) it lacks, with ``rows`` as their row
+        estimates.  A table it holds keeps its schema and statistics."""
+        extra = {t: cols for t, cols in schemas.items() if t not in self.schema}
+        if not extra:
+            return self
+        new_rows = dict(self.rows)
+        new_rows.update({t: float(rows[t]) for t in extra})
+        return Catalog({**self.schema, **extra}, new_rows, self.dictionaries)
+
     def columns(self, table: str) -> List[str]:
         return list(self.schema[table])
 

@@ -1366,3 +1366,47 @@ def test_quickstart_fallback_on_card(dev):
     out, route = eng.execute_with_fallback(quickstart.fallback_plan())
     assert route == "accelerator" and out["s"].data.device.type == "cuda"
     assert float(out.to_host()["s"][0]) == 6.0
+
+
+@pytest.mark.parametrize("n,k", [(100_000_000, 10), (100_000_000, 128),
+                                 (1_025, 128), (433, 10), (1, 1)])
+def test_topk_select_int64_on_card(dev, n, k):
+    """int64 ranks wider than float32 holds exactly (ClickBench's count
+    DESC, key composites), with heavy ties and negative keys: exact
+    indices against the plain version (a stable sort)."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(n + k)
+    keys = (torch.randint(0, 1000, (n,), device=dev, generator=g) * 2**40
+            + torch.randint(0, 3, (n,), device=dev, generator=g) - 2**45)
+    build.reset_launch_counts()
+    got = ops.topk_select(keys, k)
+    assert build.launch_counts()["topk_select"] == 1
+    assert got.dtype == torch.int32 and got.is_cuda
+    assert torch.equal(got, ref.topk_select_ref(keys, k))
+
+
+@pytest.mark.parametrize("n,groups", [(2**24 + 1, 7), (2**24 + 1, 300_000),
+                                      (3 * 2**24 + 5, 5_000)])
+def test_groupby_row_chunks_on_card(dev, n, groups):
+    """A group-by past 2^24 rows runs groupby_sum on chunks of 2^24 rows:
+    counts exact in int64, sums and averages as the generic path's."""
+    from repro_torch.core.kernel_backend import ROW_BOUND, KernelBackend
+    from repro_torch.observability.metrics import METRICS
+    from repro_torch.relational.aggregate import AggSpec, group_aggregate
+    from repro_torch.relational.expressions import Col
+    from repro_torch.relational.table import Column, Table
+    g = torch.Generator(device=dev)
+    g.manual_seed(n + groups)
+    t = Table({"k": Column(torch.randint(0, groups, (n,), device=dev, generator=g)),
+               "v": Column(torch.randint(0, 2000, (n,), device=dev, generator=g))})
+    aggs = [AggSpec("count_star", None, "c"), AggSpec("sum", Col("v"), "s"),
+            AggSpec("avg", Col("v"), "a"), AggSpec("max", Col("v"), "m")]
+    chunks = METRICS.counter("kernel.groupby_row_chunks")
+    before = chunks.value
+    got = KernelBackend().try_aggregate(t, ["k"], aggs).to_host()
+    assert chunks.value - before == -(-n // ROW_BOUND)
+    want = group_aggregate(t, ["k"], aggs).to_host()
+    assert got["c"].dtype == np.int64 and got["c"].sum() == n
+    for c in ("k", "c", "s", "m"):
+        np.testing.assert_array_equal(got[c], want[c])
+    np.testing.assert_allclose(got["a"], want["a"], rtol=1e-12)

@@ -4,7 +4,8 @@
 the card, and what the wrapper runs for CPU tensors) must give exactly the
 indices of the Pallas ``topk_select`` in interpret mode and of a stable
 numpy argsort.  ``KernelBackend.try_topk`` must pick the same rows as the
-reference backend's and route or decline at the same 2^24 edge.
+reference backend's where both route; past the reference's 2^24 edge the
+port routes int64 ranks, which must pick the generic sort's rows.
 """
 import jax  # noqa: F401 — both packages in one process, JAX on the CPU
 import jax.numpy as jnp
@@ -120,6 +121,9 @@ def test_try_topk_picks_the_reference_rows(keys):
     ((4_096, 4_096), True), ((4_096, 4_097), False),
 ])
 def test_try_topk_routes_and_declines_at_the_f32_edge(spans, routes):
+    """Both backends route a float32-exact composite alike; past 2^24 the
+    reference declines and the port routes it as int64, with the generic
+    sort's rows."""
     rng = np.random.default_rng(sum(spans))
     n = 300
     cols = {}
@@ -129,11 +133,54 @@ def test_try_topk_routes_and_declines_at_the_f32_edge(spans, routes):
         cols[f"k{i}"] = v
     keys = [(f"k{i}", i % 2 == 0) for i in range(len(spans))]
     got, want, hit, ref_hit = _both_topk(cols, keys, 7)
-    assert hit == ref_hit == int(routes)
+    assert hit == 1 and ref_hit == int(routes)
     if routes:
         assert_tables_equal(got.to_host(), want.to_host())
     else:
-        assert got is None and want is None
+        assert want is None
+        generic = sort_table(Table.from_pydict(cols),
+                             [SortKey(nm, a) for nm, a in keys], 7)
+        assert_tables_equal(got.to_host(), generic.to_host())
+
+
+@pytest.mark.parametrize("spans,routes", [
+    ((2**63,), True), ((2**31, 2**32), True), ((2**62, 3), False),
+    ((2**31 + 1, 2**32), False),
+])
+def test_try_topk_routes_int64_ranks_up_to_2_63(spans, routes):
+    """A composite of at most 2^63 values packs into int64 and routes, with
+    the generic sort's rows, ties and descending keys included; a wider
+    one declines."""
+    rng = np.random.default_rng(len(spans))
+    n = 2_000
+    cols = {}
+    for i, span in enumerate(spans):
+        lo = -(span // 2)
+        v = lo + rng.integers(0, min(span, 50), n).astype(np.int64) * (span // 50)
+        v[0], v[1] = lo, lo + span - 1    # pin the span exactly
+        cols[f"k{i}"] = v
+    keys = [(f"k{i}", i % 2 == 1) for i in range(len(spans))]
+    backend = KernelBackend()
+    t = Table.from_pydict(cols)
+    sk = [SortKey(nm, a) for nm, a in keys]
+    got = backend.try_topk(t, sk, 100)
+    assert backend.topk_hits == int(routes)
+    if routes:
+        assert_tables_equal(got.to_host(), sort_table(t, sk, 100).to_host())
+    else:
+        assert got is None
+
+
+@pytest.mark.parametrize("n,k", [(1, 1), (433, 10), (1_025, 128), (5_000, 128)])
+def test_int64_ref_is_a_stable_sort(n, k):
+    """int64 keys sort as they are, wide and negative, ties to the smaller
+    row."""
+    rng = np.random.default_rng(n)
+    x = rng.integers(0, 5, n).astype(np.int64) * 2**50 - 2**61 + rng.integers(0, 2, n)
+    got = topk_select_ref(torch.from_numpy(x), k)
+    assert got.dtype == torch.int32 and got.shape == (k,)
+    np.testing.assert_array_equal(got.numpy(), np.argsort(x, kind="stable")[:k])
+    assert torch.equal(ops.topk_select(torch.from_numpy(x), k), got)
 
 
 def test_try_topk_declines_outside_the_contract():
@@ -188,3 +235,42 @@ def test_sized_tile_network_matches_the_plain_version(n, kind):
     for k in sorted({1, min(n, 10), min(n, 128)}):
         want = topk_select_ref(torch.from_numpy(x), k).numpy()
         np.testing.assert_array_equal(_bitonic_model(x, k), want)
+
+
+def _bitonic_model64(x: np.ndarray, k: int) -> np.ndarray:
+    """csrc/topk.cu's one round over int64 keys in numpy: (key with its
+    sign bit flipped, row) pairs, the padding (UINT64_MAX, UINT32_MAX),
+    the bitonic network on tile_for(n) slots comparing by (key, row)."""
+    n = x.shape[0]
+    tile = tile_for(n)
+    key = np.full(tile, np.iinfo(np.uint64).max, np.uint64)
+    row = np.full(tile, np.iinfo(np.uint32).max, np.uint64)
+    key[:n] = x.view(np.uint64) ^ np.uint64(1 << 63)
+    row[:n] = np.arange(n, dtype=np.uint64)
+    t = np.arange(tile // 2)
+    size = 2
+    while size <= tile:
+        stride = size // 2
+        while stride > 0:
+            i = 2 * t - (t & (stride - 1))
+            j = i + stride
+            after = (key[i] > key[j]) | ((key[i] == key[j]) & (row[i] > row[j]))
+            swap = after == ((i & size) == 0)
+            for a in (key, row):
+                lo, hi = a[i].copy(), a[j].copy()
+                a[i], a[j] = np.where(swap, hi, lo), np.where(swap, lo, hi)
+            stride //= 2
+        size *= 2
+    return row[:k].astype(np.int32)
+
+
+@pytest.mark.parametrize("n", [1, 2, 38, 64, 433, 1_024])
+def test_int64_network_matches_the_plain_version(n):
+    """The int64 pairs' network gives the plain version's indices: wide
+    ranks, negative ranks and ties."""
+    rng = np.random.default_rng(n + 5)
+    x = (rng.integers(0, max(n // 4, 2), n).astype(np.int64) * 2**40
+         - rng.integers(0, 2, n) * 2**62)
+    for k in sorted({1, min(n, 10), min(n, 128)}):
+        want = topk_select_ref(torch.from_numpy(x), k).numpy()
+        np.testing.assert_array_equal(_bitonic_model64(x, k), want)

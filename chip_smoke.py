@@ -5,7 +5,8 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It imports
 nothing of JAX or of the JAX package ``repro``, and:
 
 1. prints the card's name and power limit (``nvidia-smi``);
-2. builds the six CUDA kernels from ``src/repro_torch/csrc``;
+2. builds the CUDA kernels from ``src/repro_torch/csrc``: the six that
+   replace the TPU kernels, and ``count_distinct``, which replaces none;
 3. calls each kernel's wrapper on the card at the shapes its main path
    gives it (TPC-H at SF1, ClickBench at 2,000,000 rows), from inputs made
    with a numpy seed, and holds the result against the kernel's plain
@@ -21,7 +22,10 @@ nothing of JAX or of the JAX package ``repro``, and:
    same size and at Q5's third call (every key hits), ``join_expand`` at
    both of Q5's calls and at a skewed case, over the whole bucket (filler
    included), ``topk_select`` at a
-   main-path shape and at a 2^20-key shape with heavy ties, and
+   main-path shape and at a 2^20-key shape with heavy ties,
+   ``count_distinct`` exactly at 2^24 rows of ClickBench q4's user ids in
+   one group and by q9's regions, and at q4's and q9's calls of
+   ``clickbench-hits.hot`` (99,997,497 rows, 17,630,976 users), and
    ``decode_attention`` at the server's shape (batch 8, llama3.2-3b's
    heads, an 8192-row bf16 cache), at 32,768 rows (batch 4, and batch 1),
    in float32 with group 7 and at phase 6b's group 4 (phi3.5-moe's and
@@ -33,8 +37,9 @@ nothing of JAX or of the JAX package ``repro``, and:
    deliberately wrong versions are read against the same limit (scores
    rounded to bf16; each row's last valid position dropped), and the
    second must fail it.  Each kernel, its plain version
-   and (for the group-by, the top-k and the decode attention) one library
-   call are timed with CUDA events; the kernel's own grids also with
+   and (for the group-by, the top-k, the count distinct and the decode
+   attention) one library call are timed with CUDA events; the kernel's
+   own grids also with
    torch.profiler over the same loop (``device_ms``), the wrapper's host
    time with the host clock (``host_ms``) and, for ``hash_probe``, one call
    with the card's L2 evicted (``evicted_ms``).  Each kernel's check runs
@@ -274,7 +279,9 @@ ORDER = (1, 6, 3, 5)
 # at SF1 build_table32 declines a probe table or more in Q4, Q5, Q8, Q9,
 # Q12, Q14, Q17, Q19, Q21 and Q22, whose joins then run eagerly (the inner
 # ones through join_expand), and Q19's group-by and Q21's top-k reach
-# their kernels), and the queries whose warm replay on
+# their kernels; and where the port's kernel backend takes the group-bys
+# with a count distinct, Q16's and Q21's two, which the reference's
+# declines), and the queries whose warm replay on
 # ``SiriusEngine()`` must be one CUDA graph (the reference compiles the
 # replay of every one of the 22 where no kernel backend is attached;
 # tests/test_torch_tpch_compiled.py pins this set to the reference's)
@@ -287,10 +294,10 @@ EXPECTED_HITS_SF1 = {
     9: _hits(probe=3, agg=1, expand=2), 10: _hits(filter=1, probe=3),
     11: _hits(probe=4, agg=2), 12: _hits(agg=1, expand=1),
     13: _hits(agg=2, expand=1), 14: _hits(filter=1, agg=1, expand=1),
-    15: _hits(filter=2, probe=1, agg=3), 16: _hits(probe=2),
+    15: _hits(filter=2, probe=1, agg=3), 16: _hits(probe=2, agg=1),
     17: _hits(probe=1, agg=2, expand=1), 18: _hits(probe=3, agg=1),
     19: _hits(agg=1, expand=1), 20: _hits(filter=1, probe=3, agg=1, expand=1),
-    21: _hits(probe=3, agg=1, topk=1), 22: _hits(agg=2),
+    21: _hits(probe=3, agg=3, topk=1), 22: _hits(agg=2),
 }
 EXPECTED_GRAPH_QIDS = frozenset(range(1, 23))
 WARM_RUNS = 3
@@ -303,6 +310,16 @@ CB_ROWS = 2_000_000
 CB_SEED = 20130701
 CB_AGG = ("q0", "q1", "q2", "q6", "q12", "q14", "q20", "q21", "q43x", "q44x")
 CB_TOPK = ("q8", "q12", "q14", "q21", "q22", "q44x")
+# the group-bys with a count distinct, which the port's kernel backend takes
+# (count_distinct) and the reference's declines
+CB_DISTINCT = ("q4", "q5", "q8", "q10", "q22")
+
+
+def _cb_hits(qid: str) -> dict:
+    """The kernel engine's hits on ClickBench query ``qid``."""
+    return _hits(agg=int(qid in CB_AGG or qid in CB_DISTINCT),
+                 topk=int(qid in CB_TOPK))
+
 
 # The TPU kernels the CUDA kernels replace (file:line of the pallas_call's
 # function in the JAX package)
@@ -313,6 +330,7 @@ REPLACES = {
     "join_expand": "src/repro/kernels/join_expand.py:62",
     "topk_select": "src/repro/kernels/topk.py:60",
     "decode_attention": "src/repro/kernels/decode_attention.py:68",
+    "count_distinct": None,   # no TPU counterpart: the reference sorts pairs
 }
 # the names of each kernel's grids, as torch.profiler reports them (for
 # groupby_sum, the register/shared grid, the one-pass design's row and
@@ -328,6 +346,7 @@ DEVICE_NAMES = {
     "join_expand": ("join_expand_kernel",),
     "topk_select": ("topk_tile_kernel",),
     "decode_attention": ("decode_attention_kernel",),
+    "count_distinct": ("count_distinct_insert_kernel",),
 }
 SOURCES = {
     "filter_mask_counts": "src/repro_torch/csrc/filter_count.cu",
@@ -336,11 +355,12 @@ SOURCES = {
     "join_expand": "src/repro_torch/csrc/join_expand.cu",
     "topk_select": "src/repro_torch/csrc/topk.cu",
     "decode_attention": "src/repro_torch/csrc/decode_attention.cu",
+    "count_distinct": "src/repro_torch/csrc/count_distinct.cu",
 }
 # the kernels each main path must launch
 PATH_KERNELS = {
     "tpch": ("filter_mask_counts", "groupby_sum", "hash_probe", "join_expand"),
-    "clickbench": ("groupby_sum", "topk_select"),
+    "clickbench": ("groupby_sum", "topk_select", "count_distinct"),
     "lm_serve": ("decode_attention",),
     "front_door": ("filter_mask_counts", "groupby_sum", "hash_probe",
                    "join_expand", "topk_select"),
@@ -979,6 +999,99 @@ def check_topk(rng, dev) -> dict:
     return {**main, "other_shapes": [large, q14, wide]}
 
 
+def _count_distinct_case(gids_np: np.ndarray, values_np: np.ndarray, g: int,
+                         what: str, dev) -> dict:
+    import torch
+    from repro_torch.kernels import count_distinct as cd
+    from repro_torch.kernels import ops, ref
+    gids = torch.from_numpy(gids_np).to(dev)
+    values = torch.from_numpy(values_np).to(dev)
+    got = ops.count_distinct(gids, values, g)
+    torch.cuda.synchronize()
+    want = ref.count_distinct_ref(gids, values, g)
+    if not torch.equal(got, want):
+        bad = int((got != want).sum())
+        raise AssertionError(f"count_distinct ({what}): {bad} of {g} counts "
+                             f"differ from the plain version")
+    n = gids.shape[0]
+    pairs = (values if g == 1 else
+             torch.stack([gids.to(torch.int64), values], 1))
+    slots = cd.table_slots(n)
+    row = {
+        "name": "count_distinct", "shape": f"N={n}, G={g} ({what})",
+        "distinct_pairs": int(want.sum()),
+        "max_abs_err": 0.0, "tolerance": "exact (counts)",
+        **kernel_times("count_distinct",
+                       lambda: ops.count_distinct(gids, values, g)),
+        "plain_ms": cuda_ms(lambda: ref.count_distinct_ref(gids, values, g)),
+        # the same pairs made unique by one library call (the counting by
+        # group left out)
+        "library_ms": cuda_ms(lambda: torch.unique(pairs, dim=0)),
+        # what the function must move: each row's gid and value read, the
+        # counts written
+        **bound(n * (8 + 4) + g * 8, n),
+        # what the design adds: the wrapper's fill of the table (outside
+        # device_ms, which reads the kernel's grid; inside ms), its floor
+        # at the card's bandwidth, and one random slot access a row
+        "table_bytes": slots * cd.SLOT_BYTES,
+        "table_fill_bound_ms": slots * cd.SLOT_BYTES / HBM_BYTES_PER_S * 1e3,
+        "table_fill_ms": cuda_ms(lambda: torch.full(
+            (slots * cd.SLOT_BYTES // 8,), -1, dtype=torch.int64, device=dev)),
+    }
+    del gids, values, pairs, got, want
+    torch.cuda.empty_cache()
+    return row
+
+
+def _users(rng, n: int, users: int, skew: float) -> np.ndarray:
+    """Row -> user of ``n`` rows over ``users`` users, each on a row at
+    least once, the rest zipf-skewed by ``skew`` (benchmark's generator's
+    law: P(r) about (r + 1)^-skew)."""
+    u = rng.random(n - users)
+    x = ((users ** (1 - skew) - 1) * u + 1) ** (1 / (1 - skew))
+    rank = np.clip(np.floor(x).astype(np.int64) - 1, 0, users - 1)
+    return rng.permutation(np.concatenate([np.arange(users), rank]))
+
+
+def _regions(rng, users: int) -> tuple:
+    """Each user's home region, one of 229 skewed at 0.7, as dense gids
+    from 0 over the regions some user has → (gid per user, regions)."""
+    u = rng.random(users)
+    region = np.clip(np.floor(((229 ** 0.3 - 1) * u + 1) ** (1 / 0.3))
+                     .astype(np.int64) - 1, 0, 228)
+    present = np.unique(region)
+    return np.searchsorted(present, region).astype(np.int32), present.size
+
+
+def _q4_q9_calls(rng, n: int, users: int, dev) -> list:
+    """ClickBench q4's call (count(distinct UserID), one group) and q9's
+    (the same users by RegionID) over ``n`` rows of ``users`` users,
+    63-bit ids, zipf-skewed at the benchmark generator's 0.9."""
+    ids = rng.integers(0, 2 ** 63 - 1, users, dtype=np.int64)
+    user = _users(rng, n, users, 0.9)
+    values = ids[user]
+    del ids
+    rows = "2^24 rows" if n == 2 ** 24 else f"{n:,} rows"
+    q4 = _count_distinct_case(np.zeros(n, np.int32), values, 1,
+                              f"q4: UserID, one group, {rows}", dev)
+    region, g = _regions(rng, users)
+    q9 = _count_distinct_case(region[user], values, g,
+                              f"q9: UserID by RegionID, {rows}", dev)
+    return [q4, q9]
+
+
+def check_count_distinct(rng, dev) -> dict:
+    """The row is a 2^24-row cut of ClickBench q4's call: 2,958,060 users,
+    the cell's 17,630,976 a 99,997,497 rows scaled down.  Under
+    ``other_shapes``: q9's call at the same cut, then q4's and q9's calls
+    as ``clickbench-hits.hot`` makes them, over 99,997,497 rows of
+    17,630,976 users (a 2^28-slot, 4.3 GB table: byte offsets past 2^32)."""
+    n = 2 ** 24
+    q4, q9 = _q4_q9_calls(rng, n, 17_630_976 * n // 99_997_497, dev)
+    full = _q4_q9_calls(rng, 99_997_497, 17_630_976, dev)
+    return {**q4, "other_shapes": [q9, *full]}
+
+
 def _decode_bf16_scores(q, k, v, n):
     """A control: the plain version with its scores rounded to bf16."""
     import torch
@@ -1107,7 +1220,7 @@ def check_decode_attention(rng, dev) -> dict:
 
 # phase 3's checks, in order; each runs in a process of its own
 PHASE3 = ("check_filter", "check_groupby", "check_probe", "check_expand",
-          "check_topk", "check_decode_attention")
+          "check_topk", "check_decode_attention", "check_count_distinct")
 CHECK_CHILD = """
 import json, sys
 import numpy as np, torch
@@ -1481,7 +1594,7 @@ def run_clickbench() -> dict:
         out, cold = timed(eng, qid)
         after = eng.backend.hit_counts()
         hits = {k: after[k] - before[k] for k in after}
-        want = _hits(agg=int(qid in CB_AGG), topk=int(qid in CB_TOPK))
+        want = _cb_hits(qid)
         if hits != want:
             raise AssertionError(f"ClickBench {qid}: kernel hits {hits}, "
                                  f"expected at {CB_ROWS} rows {want}")
@@ -1764,7 +1877,7 @@ def run_front_door(card: str, tpch_tables: dict, tpch_db: dict,
         what = f"wire ClickBench {qid}"
         r = wire_runs(cb_eng, _golden_wire(f"clickbench_{qid}"), want, what,
                       lambda: cb_eng.sql(text, catalog=cat))
-        want_hits = _hits(agg=int(qid in CB_AGG), topk=int(qid in CB_TOPK))
+        want_hits = _cb_hits(qid)
         if r["hits"] != want_hits:
             raise AssertionError(f"{what}: kernel hits {r['hits']}, the SQL "
                                  f"path's {want_hits}")
@@ -2008,7 +2121,7 @@ def run_analyze(card: str, tpch_tables: dict, tpch_db: dict, cb_table,
         out, ms = timed(lambda: cb_eng.sql(text, catalog=cat, analyze=True))
         compare_tables(out.to_host(), want)
         d = checked(cb_eng.last_profile, out.num_rows, what)
-        want_hits = _hits(agg=int(qid in CB_AGG), topk=int(qid in CB_TOPK))
+        want_hits = _cb_hits(qid)
         if _kernel_deltas(d) != want_hits:
             raise AssertionError(f"{what}: kernel hits {_kernel_deltas(d)}, "
                                  f"expected {want_hits}")

@@ -11,8 +11,9 @@ On CPU tensors each kernel wrapper runs its plain version instead.
   * probe     — single-column integer PK-FK inner/semi/anti/mark join →
                 int32-factorized open-addressing ``hash_probe``.
   * aggregate — group-by with int-factorizable keys and sum/count/avg/min/max
-                → ``groupby_sum`` for the additive aggregates, device
-                segment ops for min/max.
+                and count distinct of integer-coded values → ``groupby_sum``
+                for the additive aggregates, ``count_distinct`` for the
+                distinct counts, device segment ops for min/max.
   * expand    — the eager join's run expansion (multi-match inner/left) →
                 ``join_expand``.
   * topk      — ORDER BY + LIMIT over integer/date/string-code keys packed
@@ -32,6 +33,7 @@ import numpy as np
 import torch
 
 from ..kernels import ops as kops
+from ..observability.journal import JOURNAL
 from ..observability.metrics import METRICS
 from ..relational.aggregate import AggSpec, factorize_groups, segment_reduce
 from ..relational.expressions import Between, BinOp, Col, Expr, Lit, evaluate
@@ -76,7 +78,7 @@ def _collect_range_conjuncts(e: Expr, out: List[Tuple[str, float, float]]) -> bo
 
 
 _SUM_FNS = ("sum", "count", "count_star", "avg")
-_AGG_FNS = _SUM_FNS + ("min", "max")
+_AGG_FNS = _SUM_FNS + ("min", "max", "count_distinct")
 # a group's float32 count in ``groupby_sum`` is exact up to 2^24 rows: a
 # group-by over more rows runs the kernel on chunks of this many
 ROW_BOUND = 2**24
@@ -181,14 +183,19 @@ class KernelBackend:
     # -- group-by aggregation ----------------------------------------------------
     def try_aggregate(self, t: Table, keys: Sequence[str],
                       aggs: Sequence[AggSpec]) -> Optional[Table]:
-        """Route an eligible group-by to the ``groupby_sum`` kernel.
+        """Route an eligible group-by to the ``groupby_sum`` and
+        ``count_distinct`` kernels.
 
         Additive aggregates (sum/count/avg) become columns of one (N, V)
         value matrix summed per group in one ``groupby_sum_large`` call
-        (one a chunk of ROW_BOUND rows past that bound); min/max ride
-        along as device segment ops.  Returns None (caller
-        falls back to the generic path) if any key or aggregate is outside
-        the contract; all checks are metadata-level.
+        (one a chunk of ROW_BOUND rows past that bound), run only where
+        one is asked for; each count distinct of an integer, date, bool or
+        dictionary-coded string column is one ``count_distinct`` call in
+        the journal's ``agg.count_distinct`` span; min/max ride along as
+        device segment ops.  Returns None (caller falls back to the
+        generic path) if any key or aggregate is outside the contract
+        (a float's count distinct: -0.0 and NaN equality is not bit
+        equality); all checks are metadata-level.
         """
         if t.num_rows == 0:
             return None
@@ -206,6 +213,8 @@ class KernelBackend:
             col = evaluate(a.expr, t)
             if a.fn in _SUM_FNS and (col.kind == STRING
                                      or dtype_kind(col.data) not in "ifb"):
+                return None
+            if a.fn == "count_distinct" and dtype_kind(col.data) not in "iub":
                 return None
             values.append(col)
 
@@ -266,29 +275,37 @@ class KernelBackend:
                 acc = part if acc is None else acc.add_(part)
             return n_rows, acc, peak
 
-        n_rows, acc, peak = sums(centers, ones=True)
-        counts = n_rows.to(torch.float64)
-        totals = [acc[:, i] + c * counts for i, (_, c) in enumerate(centers)]
+        if any(a.fn in _SUM_FNS for a in aggs):
+            n_rows, acc, peak = sums(centers, ones=True)
+            counts = n_rows.to(torch.float64)
+            totals = [acc[:, i] + c * counts
+                      for i, (_, c) in enumerate(centers)]
 
-        # float32 outputs hold integers only up to 2^24: where a group's
-        # sum of an integer column about the column's centre passes that
-        # (a large group whose mean lies far from it: ClickBench q30's
-        # avg(ResolutionWidth)), sum again about each group's own mean,
-        # whose centred sums stay small
-        exact = [i for a, col, i in zip(aggs, values, routes)
-                 if i is not None and dtype_kind(col.data) in "ib"]
-        if n_groups > 1 and exact and pull_scalar(
-                (peak[exact] >= 2**24).any()):
-            own = [torch.round(totals[i] / torch.clamp(counts, min=1.0))
-                   for i in exact]
-            _, again, _ = sums([(centers[i][0], c[gids]) for i, c in
-                                zip(exact, own)], ones=False)
-            for j, (i, c) in enumerate(zip(exact, own)):
-                totals[i] = again[:, j] + c * counts
+            # float32 outputs hold integers only up to 2^24: where a
+            # group's sum of an integer column about the column's centre
+            # passes that (a large group whose mean lies far from it:
+            # ClickBench q30's avg(ResolutionWidth)), sum again about each
+            # group's own mean, whose centred sums stay small
+            exact = [i for a, col, i in zip(aggs, values, routes)
+                     if i is not None and dtype_kind(col.data) in "ib"]
+            if n_groups > 1 and exact and pull_scalar(
+                    (peak[exact] >= 2**24).any()):
+                own = [torch.round(totals[i] / torch.clamp(counts, min=1.0))
+                       for i in exact]
+                _, again, _ = sums([(centers[i][0], c[gids]) for i, c in
+                                    zip(exact, own)], ones=False)
+                for j, (i, c) in enumerate(zip(exact, own)):
+                    totals[i] = again[:, j] + c * counts
 
         out = dict(uniq.columns)
         for a, col, i in zip(aggs, values, routes):
-            if a.fn in ("count", "count_star"):
+            if a.fn == "count_distinct":
+                with JOURNAL.span("agg.count_distinct", "operator"):
+                    res = kops.count_distinct(
+                        gids32, col.data.to(torch.int64).contiguous(),
+                        n_groups)
+                out[a.name] = Column(res, NUMERIC)
+            elif a.fn in ("count", "count_star"):
                 out[a.name] = Column(n_rows, NUMERIC)
             elif a.fn in ("sum", "avg"):
                 s = totals[i]

@@ -24,7 +24,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("filter_count.cu", "groupby_agg.cu", "hash_probe.cu",
-           "join_expand.cu", "topk.cu", "decode_attention.cu", "errors.cu")
+           "join_expand.cu", "topk.cu", "decode_attention.cu",
+           "count_distinct.cu", "errors.cu")
 ARCH = "arch=compute_90a,code=sm_90a"
 NVCC_FLAGS = ("-gencode", ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
@@ -42,6 +43,7 @@ SIGNATURES = {
     "repro_topk_select64": (_P, _I64, _I32, _I32, _P, _P, _P),
     "repro_decode_attention": (_P, _P, _P, _P, _P, _P, _P, _I32, _I32, _I32,
                                _I32, _I32, _I32, _I32, _P),
+    "repro_count_distinct": (_P, _P, _P, _P, _I64, _I32, _I64, _I32, _P),
 }
 
 _lock = threading.Lock()
@@ -160,7 +162,7 @@ def launch(name: str, index: int, stream: int, *args) -> None:
 # ---------------------------------------------------------------------------
 
 KERNELS = ("filter_mask_counts", "groupby_sum", "hash_probe", "join_expand",
-           "topk_select", "decode_attention")
+           "topk_select", "decode_attention", "count_distinct")
 # entry points counted under another kernel's name: topk_select's int64 keys
 COUNTED_AS = {"topk_select64": "topk_select"}
 _counts_lock = threading.Lock()

@@ -4,13 +4,15 @@ What the reference computes here in jnp stays plain torch: bucketing and
 padding, the sort-based and direct-address join builds and their lookups,
 key bounds, probe-key mapping and factorization, static-size compaction
 and the filter's compaction.
-``hash_probe_int64`` launches the ``hash_probe`` kernel.
+``hash_probe_int64`` launches the ``hash_probe`` kernel; ``count_distinct``
+is the port's own kernel, with no counterpart there.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from .count_distinct import count_distinct
 from .decode_attention import decode_attention
 from .filter_count import filter_mask_counts
 from .groupby_agg import groupby_sum
@@ -19,9 +21,10 @@ from .join_expand import join_expand
 from .topk import topk_select
 
 __all__ = [
-    "bucket_size", "build_table32", "compact", "decode_attention",
-    "direct_build", "direct_lookup", "factorize_keys_int32",
-    "factorize_keys_int32_device", "filter_mask_counts", "filter_select",
+    "bucket_size", "build_table32", "compact", "count_distinct",
+    "decode_attention", "direct_build", "direct_lookup",
+    "factorize_keys_int32", "factorize_keys_int32_device",
+    "filter_mask_counts", "filter_select",
     "groupby_sum", "groupby_sum_large", "hash_probe", "hash_probe_int64",
     "join_expand", "key_bounds", "map_probe_keys", "pad_rows",
     "sorted_build", "sorted_lookup", "topk_select",

@@ -1,11 +1,13 @@
-"""Plain PyTorch versions of the six CUDA kernels (the correctness contracts).
+"""Plain PyTorch versions of the CUDA kernels (the correctness contracts).
 
 The wrappers use them for CPU tensors; ``chip_smoke.py`` holds each kernel
 against them on the card.  ``filter_mask_counts_ref``, ``groupby_sum_ref``,
 ``hash_probe_ref`` and ``decode_attention_ref`` port ``repro/kernels/ref.py``;
 ``join_expand_ref`` ports ``repro/relational/join.py::_join_expand``;
 ``topk_select_ref`` states the semantics of ``repro/kernels/topk.py``,
-which has no plain version in the reference.
+which has no plain version in the reference; ``count_distinct_ref`` that
+of ``repro/relational/aggregate.py``'s count-distinct sort, which no TPU
+kernel has.
 """
 from __future__ import annotations
 
@@ -112,6 +114,17 @@ def topk_select_ref(keys: torch.Tensor, k: int) -> torch.Tensor:
         keys = keys.to(torch.float32)
         keys = torch.where(keys == 0, torch.zeros_like(keys), keys)
     return torch.sort(keys, stable=True).indices[:k].to(torch.int32)
+
+
+def count_distinct_ref(gids: torch.Tensor, values: torch.Tensor,
+                       n_groups: int) -> torch.Tensor:
+    """Distinct values per group, dropping out-of-range gids → (G,) int64:
+    the unique (gid, value) pairs, counted by gid."""
+    gids = gids.to(torch.int64)
+    ok = (gids >= 0) & (gids < n_groups)
+    pairs = torch.stack([gids[ok], values.to(torch.int64)[ok]], 1)
+    uniq = torch.unique(pairs, dim=0)
+    return torch.bincount(uniq[:, 0], minlength=n_groups)
 
 
 def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -493,6 +493,10 @@ def test_topk_select_rejects_what_it_does_not_take(dev):
 # ClickBench at 20,000 rows: kernel hits per query on the reference engine
 CB_AGG = ("q0", "q1", "q2", "q6", "q12", "q14", "q20", "q21", "q43x", "q44x")
 CB_TOPK = ("q8", "q12", "q14", "q21", "q22", "q44x")
+# the port's kernel backend also takes the group-bys with a count distinct
+CB_DISTINCT = ("q4", "q5", "q8", "q10", "q22")
+# the group-bys that ask for a count, sum or average: they run groupby_sum
+CB_SUMS = ("q0", "q1", "q2", "q12", "q14", "q20", "q21", "q22", "q43x", "q44x")
 
 
 @pytest.fixture(scope="module")
@@ -522,10 +526,12 @@ def test_clickbench_kernel_path_matches_generic_on_card(clickbench_engines, qid)
     after = fast.backend.hit_counts()
     launched = build.launch_counts()
     hits = {k: after[k] - before[k] for k in after}
-    assert hits == dict(filter=0, probe=0, agg=int(qid in CB_AGG), expand=0,
-                        topk=int(qid in CB_TOPK))
+    assert hits == dict(filter=0, probe=0,
+                        agg=int(qid in CB_AGG or qid in CB_DISTINCT),
+                        expand=0, topk=int(qid in CB_TOPK))
     assert launched["topk_select"] == hits["topk"]
-    assert launched["groupby_sum"] >= hits["agg"]
+    assert launched["groupby_sum"] == int(qid in CB_SUMS)
+    assert launched["count_distinct"] == int(qid in CB_DISTINCT)
     want = plain.sql(sql, catalog=cat).to_host()
     assert set(got) == set(want)
     for k in want:
@@ -836,6 +842,82 @@ def test_topk_select_sized_tiles_on_card(dev, n):
         got = ops.topk_select(keys, k)
         assert build.launch_counts()["topk_select"] == 1
         assert torch.equal(got, ref.topk_select_ref(keys, k))
+
+
+def _zipf_ids(rng, n: int, distinct: int) -> np.ndarray:
+    """``n`` 63-bit ids drawn Zipf-skewed from ``distinct`` of them."""
+    ids = rng.integers(0, 2**63 - 1, distinct, dtype=np.int64)
+    return ids[np.minimum(rng.zipf(1.2, n), distinct) - 1]
+
+
+def _count_distinct_case(name: str, rng):
+    if name == "2^22 Zipf ids, one group":
+        n = 2**22
+        return np.zeros(n, np.int32), _zipf_ids(rng, n, 1_000_000), 1
+    if name == "2^22 Zipf ids, 3,000 groups":
+        n = 2**22
+        return (rng.integers(0, 3_000, n).astype(np.int32),
+                _zipf_ids(rng, n, 1_000_000), 3_000)
+    if name == "ragged row count, extremes, dropped gids":
+        n = 1_000_003
+        pool = np.concatenate([
+            np.array([np.iinfo(np.int64).min, np.iinfo(np.int64).max, -1, -2, 0]),
+            rng.integers(-2**40, 2**40, 50_000)])
+        return (rng.integers(-1, 65, n).astype(np.int32), rng.choice(pool, n), 64)
+    if name == "one hot pair on 90% of the rows":
+        n = 3_000_000
+        gids = rng.integers(0, 100, n).astype(np.int32)
+        values = rng.integers(0, 2**62, n)
+        hot = rng.random(n) < 0.9
+        gids[hot], values[hot] = 7, 123_456_789_012_345
+        return gids, values, 100
+    raise KeyError(name)
+
+
+@pytest.mark.parametrize("name", [
+    "2^22 Zipf ids, one group", "2^22 Zipf ids, 3,000 groups",
+    "ragged row count, extremes, dropped gids",
+    "one hot pair on 90% of the rows"])
+def test_count_distinct_on_card(dev, name):
+    """Exactly the plain version's counts, in one counted launch."""
+    rng = np.random.default_rng(len(name))
+    gids, values, g = _count_distinct_case(name, rng)
+    gi, va = torch.from_numpy(gids).to(dev), torch.from_numpy(values).to(dev)
+    build.reset_launch_counts()
+    got = ops.count_distinct(gi, va, g)
+    torch.cuda.synchronize(dev)
+    assert build.launch_counts()["count_distinct"] == 1
+    assert got.dtype == torch.int64
+    assert torch.equal(got, ref.count_distinct_ref(gi, va, g))
+
+
+def test_count_distinct_twice_on_one_stream_on_card(dev):
+    """Two calls in a row on one stream: each clears its own table, so the
+    second counts only its own pairs."""
+    rng = np.random.default_rng(3)
+    cases = [_count_distinct_case("2^22 Zipf ids, 3,000 groups", rng),
+             _count_distinct_case("one hot pair on 90% of the rows", rng)]
+    ins = [(torch.from_numpy(gi).to(dev), torch.from_numpy(va).to(dev), g)
+           for gi, va, g in cases]
+    build.reset_launch_counts()
+    outs = [ops.count_distinct(*args) for args in ins]
+    torch.cuda.synchronize(dev)
+    assert build.launch_counts()["count_distinct"] == 2
+    for args, got in zip(ins, outs):
+        assert torch.equal(got, ref.count_distinct_ref(*args))
+
+
+def test_count_distinct_rejects_what_it_does_not_take_on_card(dev):
+    gids = torch.zeros(10, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):
+        ops.count_distinct(gids, torch.zeros(10, dtype=torch.int32, device=dev), 1)
+    with pytest.raises(ValueError):
+        ops.count_distinct(gids, torch.zeros(9, dtype=torch.int64, device=dev), 1)
+    with pytest.raises(ValueError):
+        ops.count_distinct(gids, torch.zeros(10, dtype=torch.int64, device=dev), 0)
+    empty = ops.count_distinct(gids[:0], torch.zeros(0, dtype=torch.int64,
+                                                     device=dev), 3)
+    assert torch.equal(empty, torch.zeros(3, dtype=torch.int64, device=dev))
 
 
 # ---------------------------------------------------------------------------

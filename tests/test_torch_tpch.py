@@ -7,7 +7,8 @@ path.  Its results are held against the reference engine
 (``use_kernels=True``, ``compile_pipelines=False``) and against the numpy
 oracle ``FallbackEngine`` with the suite's tolerance (rtol 1e-6, other
 columns row-exact); the eager path's kernel hit counts against the
-reference's eager path (``tests/test_torch_tpch_compiled.py`` holds the
+reference's eager path, but for the group-bys with a count distinct,
+which only the port's kernel backend takes (``tests/test_torch_tpch_compiled.py`` holds the
 default path's against the reference's default path).
 """
 import jax  # noqa: F401 — both packages in one process, JAX on the CPU
@@ -56,6 +57,12 @@ EXPECTED_HITS = {
     20: _hits(filter=1, probe=2, agg=1, expand=1), 21: _hits(probe=5, agg=1),
     22: _hits(filter=1, agg=2),
 }
+# the port's departure: its kernel backend also takes the group-bys with a
+# count distinct (Q16's, Q21's two subqueries'), which the reference's
+# declines
+DISTINCT_GROUPBYS = {16: 1, 21: 2}
+PORT_HITS = {q: {**h, "agg": h["agg"] + DISTINCT_GROUPBYS.get(q, 0)}
+             for q, h in EXPECTED_HITS.items()}
 
 
 @pytest.fixture(scope="module")
@@ -136,7 +143,8 @@ def test_kernel_hits_match_reference(qid, db, reference):
     """The eager path's hits against the reference's eager path."""
     eng = _engine(db, use_kernels=True, compile_pipelines=False)
     eng.execute(QUERIES[qid]())
-    assert eng.backend.hit_counts() == reference[qid][1] == EXPECTED_HITS[qid]
+    assert reference[qid][1] == EXPECTED_HITS[qid]
+    assert eng.backend.hit_counts() == PORT_HITS[qid]
 
 
 @pytest.mark.parametrize("use_kernels", [False, True])
